@@ -1,0 +1,77 @@
+"""Model configuration: the port's own copy of ``repro.config.ModelConfig``.
+
+Fields and defaults are copied field for field, so a configuration file
+reads the same in both packages; only the derived values the port uses
+(``head_dim``, ``vocab_padded``) are carried over.  Training, mesh and
+hardware configs belong to later slices.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+
+def pad_to(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                    # dense | moe | ssm | hybrid | encdec | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int                   # query heads (0 => attention-free)
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    block_pattern: Tuple[str, ...] = ("attn",)   # cycled over layers
+
+    # attention details
+    d_head: int = 0                # 0 => d_model // n_heads
+    qk_norm: bool = False
+    rope_theta: float = 1e4
+    sliding_window: int = 0        # 0 = full attention
+
+    # MoE
+    n_experts: int = 0
+    n_experts_active: int = 0
+    moe_d_ff: int = 0
+    moe_capacity_factor: float = 1.25
+    gcr_moe: bool = False
+    gcr_moe_rotate_every: int = 64
+
+    # SSM (Mamba2 / SSD)
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    shared_attn_every: int = 0     # 0 = no shared block
+
+    # RWKV6
+    rwkv_head_dim: int = 64
+
+    # encoder-decoder (whisper)
+    n_enc_layers: int = 0
+    enc_seq_divisor: int = 1
+
+    # modality frontend stub
+    frontend: str = "none"         # none | audio_stub | vision_stub
+    frontend_dim: int = 0
+    n_patches: int = 0
+
+    norm_eps: float = 1e-5
+    dtype: str = "bfloat16"
+
+    # ---- derived ---------------------------------------------------------
+    @property
+    def head_dim(self) -> int:
+        if self.d_head:
+            return self.d_head
+        return self.d_model // max(1, self.n_heads)
+
+    @property
+    def vocab_padded(self) -> int:
+        """Vocab padded to a multiple of 128 (lane width x model shards)."""
+        return pad_to(self.vocab_size, 128)

@@ -1,0 +1,44 @@
+"""Per-architecture configs, for the archs the port serves so far.
+
+``get_config(name)`` / ``get_smoke_config(name)`` / ``ARCHS`` keep the
+reference's names.  ``ARCHS`` lists every arch of the reference; the ones
+whose model code is not ported yet raise ``NotImplementedError``.
+"""
+
+from importlib import import_module
+from typing import Dict, List
+
+from ..config import ModelConfig
+
+ARCHS: List[str] = [
+    "zamba2-2.7b",
+    "internlm2-20b",
+    "deepseek-7b",
+    "qwen3-0.6b",
+    "qwen3-8b",
+    "whisper-base",
+    "rwkv6-7b",
+    "internvl2-2b",
+    "mixtral-8x7b",
+    "granite-moe-1b-a400m",
+]
+
+PORTED: Dict[str, str] = {"qwen3-0.6b": "qwen3_0_6b"}
+
+
+def _mod(name: str):
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; available: {ARCHS}")
+    if name not in PORTED:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported to repro_torch yet; "
+            f"ported: {sorted(PORTED)}")
+    return import_module(f"repro_torch.configs.{PORTED[name]}")
+
+
+def get_config(name: str) -> ModelConfig:
+    return _mod(name).CONFIG
+
+
+def get_smoke_config(name: str) -> ModelConfig:
+    return _mod(name).SMOKE

@@ -1,0 +1,95 @@
+"""Carry the reference's weights and caches across, through numpy.
+
+The reference keeps parameters as a nested dict whose ``layers`` subtree
+is stacked on a leading layer axis; the port keeps one module per layer.
+Names map one to one: ``params["layers"]["attn"]["wq"][i]`` is
+``Transformer.layers[i].attn.wq``.  numpy has no bf16, so arrays arrive
+widened to f32 and are cast to the port's dtype on the way in.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from . import resolve_device
+from .config import ModelConfig
+from .models.transformer import Transformer
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            out.update(_flatten(val, f"{prefix}{key}."))
+        else:
+            out[f"{prefix}{key}"] = val
+    return out
+
+
+@torch.no_grad()
+def load_numpy_(module: nn.Module, tree: Mapping) -> nn.Module:
+    """Copy a nested dict of numpy arrays into ``module``'s parameters, in
+    place.  A ``layers`` subtree is stacked on its leading axis and fills
+    ``module.layers[i]``.  Raises unless the names and shapes match
+    exactly."""
+    flat = _flatten(tree)
+    seen = set()
+    for name, param in module.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            key = ".".join(["layers"] + parts[2:])
+            if key not in flat:
+                raise KeyError(f"{key} missing from the numpy tree")
+            arr = np.asarray(flat[key])[int(parts[1])]
+        else:
+            key = name
+            if key not in flat:
+                raise KeyError(f"{key} missing from the numpy tree")
+            arr = np.asarray(flat[key])
+        if tuple(arr.shape) != tuple(param.shape):
+            raise ValueError(f"{name}: numpy shape {arr.shape} != "
+                             f"{tuple(param.shape)}")
+        param.copy_(torch.from_numpy(np.array(arr, np.float32)))
+        seen.add(key)
+    extra = set(flat) - seen
+    if extra:
+        raise KeyError(f"numpy tree has names the module lacks: "
+                       f"{sorted(extra)}")
+    return module
+
+
+def params_from_numpy(tree: Mapping, cfg: ModelConfig, device=None,
+                      dtype: Optional[torch.dtype] = None) -> Transformer:
+    """The reference ``init_params`` pytree (as numpy arrays) -> the port's
+    ``Transformer`` on ``device`` in ``dtype`` (default: ``cfg.dtype``)."""
+    return load_numpy_(Transformer(cfg, device, dtype), tree)
+
+
+def cache_from_numpy(tree: Mapping, device=None,
+                     dtype: Optional[torch.dtype] = None) -> Dict:
+    """``{"pos", "layers": {"k", "v"}}`` stacked on the layer axis -> the
+    port's ``{"pos": int, "layers": [{"k", "v"}, ...]}``."""
+    device = resolve_device(device)
+    k, v = np.asarray(tree["layers"]["k"]), np.asarray(tree["layers"]["v"])
+
+    def put(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device,
+                            dtype=dtype or torch.float32)
+
+    return {"pos": int(tree["pos"]),
+            "layers": [{"k": put(k[i]), "v": put(v[i])}
+                       for i in range(k.shape[0])]}
+
+
+def cache_to_numpy(cache: Dict) -> Dict:
+    """The port's cache -> the reference's layout, as f32 numpy arrays."""
+    def stack(name):
+        return np.stack([lc[name].detach().float().cpu().numpy()
+                         for lc in cache["layers"]])
+
+    return {"pos": np.int32(cache["pos"]),
+            "layers": {"k": stack("k"), "v": stack("v")}}

@@ -1,0 +1,120 @@
+"""Public op: flash attention forward, the Hopper kernel or its plain version.
+
+A CPU tensor goes to the plain version (``ref.attention_ref``).  A CUDA
+tensor launches the kernel in ``csrc/flash_fwd.cu`` or raises: there is no
+fallback.  ``impl="ref"`` asks for the plain version explicitly, for the
+tests and for comparing the kernel with it on the card.
+
+``launches`` counts the kernel launches this process made.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from .. import _build
+from .ref import attention_ref
+
+launches = 0
+
+HEAD_DIMS = (16, 32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu",)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    lib = _build.load("flash_fwd", _SOURCES)
+    fn = lib.flash_fwd
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [p] * 6 + [i] * 6 + [ll] * 9 + [i] * 3 + [p]
+    fn.restype = ctypes.c_int
+    lib.flash_fwd_error_string.argtypes = [ctypes.c_int]
+    lib.flash_fwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build() -> None:
+    """Build and load the kernel library now (it is otherwise built at the
+    first launch)."""
+    _kernel()
+
+
+def _check(q, k, v, q_pos, k_pos) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"flash kernel needs CUDA tensors, got {q.device}")
+    for name, t in (("k", k), ("v", v), ("q_pos", q_pos), ("k_pos", k_pos)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be 4-d: (B,S,Hq,D), (B,T,Hkv,D)")
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (B, T, Hkv, D) or v.shape != k.shape:
+        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} do not agree")
+    if S < 1 or T < 1 or Hkv < 1 or Hq % Hkv or (S + 63) // 64 > 65535:
+        raise ValueError(f"need 1 <= S < 2**22, T >= 1, Hq % Hkv == 0 "
+                         f"(S={S}, T={T}, Hq={Hq}, Hkv={Hkv})")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} not supported; kernel takes "
+                         f"{HEAD_DIMS}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"dtypes q {q.dtype} k {k.dtype} v {v.dtype}: "
+                         f"all must be one of {list(_DTYPES)}")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
+        raise ValueError("the head dim D must be contiguous (stride 1)")
+    if min(q.stride() + k.stride() + v.stride()) < 0:
+        raise ValueError("negative strides are not supported")
+    for name, pos, n in (("q_pos", q_pos, S), ("k_pos", k_pos, T)):
+        if pos.dtype != torch.int32 or tuple(pos.shape) != (n,) \
+                or pos.stride(0) != 1:
+            raise ValueError(f"{name} must be contiguous int32 of shape "
+                             f"({n},), got {pos.dtype} {tuple(pos.shape)}")
+
+
+def _launch(q, k, v, q_pos, k_pos, window: int, causal: bool):
+    global launches
+    _check(q, k, v, q_pos, k_pos)
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    lib = _kernel()
+    out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            q_pos.data_ptr(), k_pos.data_ptr(), B, S, T, Hq, Hkv, D,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            int(window), int(bool(causal)), _DTYPES[q.dtype], stream)
+    if err:
+        raise RuntimeError("flash_fwd launch failed: "
+                           f"{lib.flash_fwd_error_string(err).decode()}")
+    launches += 1
+    return out
+
+
+def flash_attention_fwd(q, k, v, q_pos, k_pos, *, window: int = 0,
+                        causal: bool = True, impl: str = "auto"):
+    """q: (B,S,Hq,D); k,v: (B,T,Hkv,D); int32 q_pos (S,), k_pos (T,).
+    Returns (B,S,Hq,D) in q's dtype.  impl: auto | ref."""
+    if impl == "ref" or (impl == "auto" and q.device.type == "cpu"):
+        return attention_ref(q, k, v, q_pos, k_pos, window, causal)
+    if impl != "auto":
+        raise ValueError(f"unknown impl {impl!r}; expected auto | ref")
+    return _launch(q, k, v, q_pos, k_pos, window, causal)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    impl: str = "auto"):
+    """The Pallas kernel's signature: q (B,S,H,D), k/v (B,T,H,D), causal
+    mask aligned bottom-right (q_pos = arange(S) + T - S)."""
+    S, T = q.shape[1], k.shape[1]
+    q_pos = torch.arange(S, dtype=torch.int32, device=q.device) + (T - S)
+    k_pos = torch.arange(T, dtype=torch.int32, device=q.device)
+    return flash_attention_fwd(q, k, v, q_pos, k_pos, window=window,
+                               causal=causal, impl=impl)

@@ -1,0 +1,229 @@
+"""Shared layers: the port of ``repro.models.layers`` for the dense GQA
+decoder, in prefill and decode modes.
+
+Conventions (as in the reference):
+* weights keep JAX's ``x @ W`` layout ``(in, out)``, so carrying the
+  reference's parameters over is a copy, never a transpose;
+* activations flow as (batch, seq, ...); prefill attention is flat-head
+  ``(B, S, H, D)`` and reads GQA KV heads without repeating them, decode
+  attention is grouped ``(B, S, n_kv, G, D)``;
+* KV caches are ring buffers of ``cache_len`` slots; unwritten slots have
+  a negative position and are masked.
+
+Modules (``Attention``, ``MLP``) only hold parameters; the computation is
+in plain functions that take them, with the reference's names.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels.flash_attention.ops import flash_attention_fwd
+from ..kernels.flash_attention.ref import attention_ref
+
+NEG_INF = -1e30
+
+
+def _param(shape, device, dtype) -> nn.Parameter:
+    # inference-only slice: no autograd on the weights
+    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
+                        requires_grad=False)
+
+
+class Attention(nn.Module):
+    """Parameters of ``repro.models.layers.attention_params``."""
+
+    def __init__(self, d_model: int, n_heads: int, n_kv: int, d_head: int,
+                 qk_norm: bool, *, device, dtype) -> None:
+        super().__init__()
+        self.wq = _param((d_model, n_heads * d_head), device, dtype)
+        self.wk = _param((d_model, n_kv * d_head), device, dtype)
+        self.wv = _param((d_model, n_kv * d_head), device, dtype)
+        self.wo = _param((n_heads * d_head, d_model), device, dtype)
+        if qk_norm:
+            self.q_norm = _param((d_head,), device, dtype)
+            self.k_norm = _param((d_head,), device, dtype)
+
+
+class MLP(nn.Module):
+    """Parameters of ``repro.models.layers.mlp_params`` (SwiGLU)."""
+
+    def __init__(self, d_model: int, d_ff: int, *, device, dtype) -> None:
+        super().__init__()
+        self.wi_gate = _param((d_model, d_ff), device, dtype)
+        self.wi_up = _param((d_model, d_ff), device, dtype)
+        self.wo = _param((d_ff, d_model), device, dtype)
+
+
+# ---------------------------------------------------------------------------
+# Initializers (the reference's laws, drawn from a torch.Generator)
+# ---------------------------------------------------------------------------
+
+
+def dense_init_(w: torch.Tensor, generator: torch.Generator) -> None:
+    """N(0, 1/in_dim) for an (in, out) weight, drawn in f32."""
+    draw = torch.randn(w.shape, generator=generator, device=w.device,
+                       dtype=torch.float32)
+    w.copy_(draw * (1.0 / math.sqrt(w.shape[0])))
+
+
+def embed_init_(w: torch.Tensor, generator: torch.Generator) -> None:
+    draw = torch.randn(w.shape, generator=generator, device=w.device,
+                       dtype=torch.float32)
+    w.copy_(draw * 0.02)
+
+
+# ---------------------------------------------------------------------------
+# Norms and rotary embeddings
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * weight.float()).to(x.dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> torch.Tensor:
+    half = head_dim // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., seq, heads..., d_head); positions: (..., seq) int."""
+    half = x.shape[-1] // 2
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+    angles = positions.float()[..., None] * freqs          # (..., S, half)
+    for _ in range(x.dim() - angles.dim() - 1):            # head axes
+        angles = angles[..., None, :]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+# Flat-head attention with materialised scores (the reference's
+# ``_plain_attention``); it takes GQA KV heads without repeating them.
+_plain_attention = attention_ref
+
+
+def _grouped_decode_attention(q, k, v, q_pos, k_pos, window: int):
+    """Decode attention without KV repetition (cache stays kv-width).
+
+    q: (B,S,Hkv,G,D); k,v: (B,T,Hkv,D)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bshgd,bthd->bhgst", q, k).float() * scale
+    mask = k_pos[None, :] <= q_pos[:, None]
+    if window:
+        mask &= (q_pos[:, None] - k_pos[None, :]) < window
+    mask &= (k_pos >= 0)[None, :]
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhgst,bthd->bshgd", probs, v)
+
+
+def _cache_write(cache: Dict, k: torch.Tensor, v: torch.Tensor,
+                 cache_pos: int) -> Dict:
+    """Write the last min(S, Tc) tokens of k/v into the ring buffer.
+
+    In place (``index_copy_``), where the reference builds new arrays:
+    this saves a copy of every layer's cache per step.  Returns ``cache``.
+    """
+    Tc = cache["k"].shape[1]
+    S = k.shape[1]
+    Lw = min(S, Tc)
+    slots = (cache_pos + S - Lw
+             + torch.arange(Lw, device=k.device)) % Tc
+    cache["k"].index_copy_(1, slots, k[:, -Lw:].to(cache["k"].dtype))
+    cache["v"].index_copy_(1, slots, v[:, -Lw:].to(cache["v"].dtype))
+    return cache
+
+
+def _cache_slot_positions(Tc: int, cache_pos: int, S: int,
+                          device=None) -> torch.Tensor:
+    """Absolute position held by ring slot i after writing S tokens:
+    p(i) = last - ((last - i) mod Tc), last = cache_pos + S - 1; negative
+    if the slot has never been written."""
+    last = cache_pos + S - 1
+    idx = torch.arange(Tc, dtype=torch.int32, device=device)
+    k_pos = last - torch.remainder(last - idx, Tc)
+    return torch.where(k_pos <= last, k_pos, -1)
+
+
+def multihead_attention(
+    p: Attention,
+    x: torch.Tensor,                # (B, S, d_model)
+    positions: torch.Tensor,        # (S,) int32 absolute positions of x
+    cache: Optional[Dict],          # {"k","v"} ring buffers or None
+    cache_pos: int,                 # tokens already in the cache
+    *,
+    n_heads: int,
+    n_kv: int,
+    d_head: int,
+    qk_norm: bool = False,
+    rope_theta: float = 1e4,
+    window: int = 0,
+    decode: bool = False,           # True: attend over the cache (S small)
+    eps: float = 1e-5,
+    impl: str = "auto",             # prefill attention: auto | ref
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Causal self-attention.  Returns (output (B,S,d_model), cache).
+
+    Modes:
+      no cache - attend within the sequence (the teacher-forcing forward).
+      prefill  - cache given, decode=False: attend within the sequence,
+                 write the last min(S, cache_len) tokens into the ring.
+      decode   - cache given, decode=True: write the current token(s),
+                 attend over the whole ring.
+
+    Prefill attention goes through ``flash_attention_fwd``: the Hopper
+    kernel for every CUDA tensor, the plain version for a CPU tensor (the
+    reference's ``S % 512 == 0 and T % 1024 == 0`` rule is a tiling
+    constraint of its XLA scan, not part of the model).  Decode attention
+    is plain PyTorch, as it is plain XLA in the reference.
+    """
+    B, S, _ = x.shape
+    q = (x @ p.wq).reshape(B, S, n_heads, d_head)
+    k = (x @ p.wk).reshape(B, S, n_kv, d_head)
+    v = (x @ p.wv).reshape(B, S, n_kv, d_head)
+    if qk_norm:
+        q = rms_norm(q, p.q_norm, eps)
+        k = rms_norm(k, p.k_norm, eps)
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+
+    if cache is not None:
+        cache = _cache_write(cache, k, v, cache_pos)
+    if decode:
+        k_pos = _cache_slot_positions(cache["k"].shape[1], cache_pos, S,
+                                      x.device)
+        out = _grouped_decode_attention(
+            q.reshape(B, S, n_kv, n_heads // n_kv, d_head), cache["k"],
+            cache["v"], positions, k_pos, window)
+    else:
+        out = flash_attention_fwd(q, k, v, positions, positions,
+                                  window=window, causal=True, impl=impl)
+    return out.reshape(B, S, n_heads * d_head) @ p.wo, cache
+
+
+# ---------------------------------------------------------------------------
+# Dense (SwiGLU) MLP
+# ---------------------------------------------------------------------------
+
+
+def mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ p.wi_gate) * (x @ p.wi_up)) @ p.wo
