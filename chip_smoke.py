@@ -3,24 +3,35 @@
 
 Run from the root of a checkout:  ``python3 chip_smoke.py``
 
-It builds the port's CUDA kernels from the checkout's sources and then:
+It builds the port's two CUDA kernel libraries from the checkout's
+sources (one ``nvcc`` each, started together) and then:
 
 1. prints the card (``nvidia-smi`` name and power limit) and the build time;
 2. holds the flash-attention kernel against its plain PyTorch version on
    the card: the reference kernel tests' sweep in f32 and bf16, causal,
    windowed and non-causal, plus GQA, ragged lengths, ring-buffer
-   positions with unwritten (-1) slots, strided views and the serving
-   prefill shape;
+   positions with unwritten (-1) slots, strided views and both served
+   models' prefill shapes;
 3. times the kernel, the plain version and PyTorch's
    ``scaled_dot_product_attention`` (a yardstick only; the port never
-   calls it) at the serving prefill shape, beside the card's bound;
-4. serves full-width qwen3-0.6b (28 layers, random weights from seed 0)
-   under GCR admission: 8 streams on 3 slots, prompt 1024, 16 generated
-   tokens each, and checks the flash launch count, the admission counts,
+   calls it) at qwen3's prefill shape, beside the card's bound;
+4. holds the grouped expert matmul (MoE) kernel against its plain
+   version in f32 and bf16: the reference sweep, ragged capacities, a
+   strided 4-d expert buffer and granite-moe's prefill and decode shapes;
+   then times it, the plain version and ``torch.bmm`` (a yardstick only)
+   at those two shapes, beside the card's bound;
+5. serves full-width qwen3-0.6b (28 layers) and then full-width
+   granite-moe-1b-a400m (24 layers, 32 experts top-8), random weights
+   from seed 0, under GCR admission: 8 streams on 3 slots, prompt 1024,
+   16 generated tokens each.  Each run starts with the launch counts at 0
+   and checks them after (flash once a layer a wave; for granite also the
+   expert products, three a layer a forward pass), the admission counts,
    finite logits, and the first wave's prefill logits against the same
-   wave with plain attention; then profiles one prefill wave and a few
-   decode steps (device busy time, idle share, the heaviest kernels);
-5. prints one JSON line describing every kernel of the path, then, as
+   wave on the plain versions; for granite it also counts the tokens
+   whose top-8 experts agree between the two.  Each run then profiles
+   one prefill wave and a few decode steps (device busy time, idle share,
+   the heaviest kernels);
+6. prints one JSON line describing every kernel of the path, then, as
    the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero.  Without CUDA, or outside a checkout, it
@@ -34,6 +45,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -42,6 +54,7 @@ SRC = ROOT / "src"
 # Published dense peaks of one H100 SXM (NVIDIA data sheet), for the bound.
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 PEAK_BYTES_PER_S = 3.35e12
+L2_BYTES = 50e6
 
 # (B, S, T, H, D) of the reference kernel tests' flash sweep
 SWEEP = [(2, 512, 512, 4, 64), (1, 1024, 1024, 2, 128),
@@ -50,13 +63,28 @@ MODES = [(True, 0), (True, 128), (False, 0)]      # (causal, window)
 # f32: summation order only; bf16: one rounding of the output (the
 # reference kernel tests' tolerances, as atol = rtol)
 TOL = {"torch.float32": 5e-5, "torch.bfloat16": 2e-2}
+# grouped matmul, normalised by max |want| (tests/test_kernels.py): f32
+# summation order only, bf16 one rounding of the f32 sum
+GMM_TOL = {"torch.float32": 1e-5, "torch.bfloat16": 2e-2}
+# (E, C, D, F) of the reference kernel tests' gmm sweep
+GMM_SWEEP = [(4, 128, 256, 128), (2, 256, 512, 256)]
+# granite-moe-1b-a400m's expert buffers when serving 3 slots:
+# (B, E, C, d_model, moe_d_ff); C = _capacity(1024 tokens) at prefill and
+# _capacity(1 token) at decode
+GMM_PREFILL = (3, 32, 320, 1024, 512)
+GMM_DECODE = (3, 32, 8, 1024, 512)
 
-# the serving run: one GCR engine, more streams than slots
+# the serving runs: one GCR engine, more streams than slots
 N_STREAMS, N_SLOTS, PROMPT_LEN, GEN_LEN = 8, 3, 1024, 16
-# prefill logits, flash kernel vs plain attention, both in bf16: the two
-# round attention outputs to bf16 in different places, and 28 layers carry
-# those one-ulp differences to the logits.  Allowed: 5% of the largest
-# logit (about 13 bf16 ulps at that scale).
+# (arch, layers, d_model, heads, kv heads, head dim, vocab, experts, top-k)
+SERVED = [("qwen3-0.6b", (28, 1024, 16, 8, 128, 151936, 0, 0)),
+          ("granite-moe-1b-a400m", (24, 1024, 16, 8, 64, 49155, 32, 8))]
+# prefill logits, kernels vs plain versions, both in bf16: flash rounds P
+# and the output to bf16 in other places than plain attention, the gmm
+# kernel sums in another order before its one rounding, and 24 to 28
+# layers carry those one-ulp differences to the logits; in the MoE a
+# routing near-tie may also send a token to another expert.  Allowed: 5%
+# of the largest logit (about 13 bf16 ulps at that scale).
 LOGIT_RTOL = 0.05
 
 
@@ -96,9 +124,29 @@ def time_ms(torch, fn, iters: int = 10, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def kernel_phase(torch, fa, gen):
+def device_ms(torch, fn, iters: int = 20) -> float:
+    """Mean device time of one call: the durations of the CUDA kernels
+    ``iters`` calls launch, summed under torch.profiler, after one warm-up
+    call.  Unlike back-to-back CUDA events it leaves out the host's launch
+    gaps, which are longer than a small kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(busy_us > 0, "the profiler saw no device time")
+    return busy_us / 1e3 / iters
+
+
+def flash_kernel_phase(torch, fa, gen):
     """Every case: kernel vs plain on the same inputs.  Returns the max
-    abs error at the serving prefill shape."""
+    abs error at the two served models' prefill shapes and qwen3's
+    inputs, for the timing."""
     def rnd(shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
 
@@ -164,17 +212,20 @@ def kernel_phase(torch, fa, gen):
         positional(f"strided q/k/v views of a fused qkv {short}", dtype,
                    q, k, v, arange(384), arange(384), 0, True)
 
-    B, S, Hq, Hkv, D = 3, PROMPT_LEN, 16, 8, 128
-    q = rnd((B, S, Hq, D), torch.bfloat16)
-    k = rnd((B, S, Hkv, D), torch.bfloat16)
-    v = rnd((B, S, Hkv, D), torch.bfloat16)
-    err = positional(f"serving prefill B{B} S=T={S} Hq{Hq} Hkv{Hkv} D{D} "
-                     "bfloat16", torch.bfloat16, q, k, v, arange(S),
-                     arange(S), 0, True)
-    return err, (q, k, v, arange(S), arange(S))
+    # the served models' prefill shapes: granite (D 64), then qwen3 (D 128)
+    errs = []
+    for arch, D in (("granite-moe-1b-a400m", 64), ("qwen3-0.6b", 128)):
+        B, S, Hq, Hkv = N_SLOTS, PROMPT_LEN, 16, 8
+        q = rnd((B, S, Hq, D), torch.bfloat16)
+        k = rnd((B, S, Hkv, D), torch.bfloat16)
+        v = rnd((B, S, Hkv, D), torch.bfloat16)
+        errs.append(positional(
+            f"{arch} prefill B{B} S=T={S} Hq{Hq} Hkv{Hkv} D{D} bfloat16",
+            torch.bfloat16, q, k, v, arange(S), arange(S), 0, True))
+    return max(errs), (q, k, v, arange(S), arange(S))
 
 
-def timing_phase(torch, fa, inputs):
+def flash_timing_phase(torch, fa, inputs):
     q, k, v, q_pos, k_pos = inputs
     B, S, Hq, D = q.shape
     T = k.shape[1]
@@ -198,7 +249,7 @@ def timing_phase(torch, fa, inputs):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     bound_ms = max(t_ops, t_bytes)
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    print(f"timing at the serving prefill shape B{B} S=T={S} Hq{Hq} "
+    print(f"flash timing at qwen3's prefill shape B{B} S=T={S} Hq{Hq} "
           f"Hkv{k.shape[2]} D{D} {q.dtype} causal (median of 5):")
     print(f"  flash kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
           f"sdpa (yardstick) {library_ms:.4f} ms | bound {bound_ms:.4f} ms "
@@ -207,16 +258,130 @@ def timing_phase(torch, fa, inputs):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def serve_phase(torch, np, fa, gen):
+def gmm_kernel_phase(torch, gm, gen):
+    """Every case: kernel vs plain on the same inputs, compared normalised
+    by max |want|.  Returns the max abs error at granite's prefill shape
+    (bf16, both products)."""
+    def rnd(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda",
+                            dtype=torch.float32) * scale).to(dtype)
+
+    def compare(name, x, w):
+        got = gm.grouped_matmul(x, w)
+        want = gm.grouped_matmul(x, w, impl="ref")
+        check(got.shape == want.shape and got.dtype == x.dtype,
+              f"gmm kernel gave {tuple(got.shape)} {got.dtype}: {name}")
+        diff = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        tol = GMM_TOL[str(x.dtype)]
+        ok = diff <= tol * scale
+        print(f"  {name:<58} max_abs_err={diff:.3e} (normalised "
+              f"{diff / scale:.2e}, tol {tol:g}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"gmm kernel disagrees with plain: {name}")
+        return diff
+
+    print("kernel phase: grouped_matmul vs gmm_ref on the card")
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        short = str(dtype).replace("torch.", "")
+        for (E, C, D, F) in GMM_SWEEP:
+            compare(f"sweep E{E} C{C} D{D} F{F} {short}",
+                    rnd((E, C, D), dtype), rnd((E, D, F), dtype, 0.05))
+        # ragged capacities: the model's C is a multiple of 8, not of 64
+        for C in (8, 24, 320):
+            compare(f"ragged E4 C{C} D512 F256 {short}",
+                    rnd((4, C, 512), dtype), rnd((4, 512, 256), dtype, 0.05))
+        # a (B,E,C,D) buffer read in place through its strides
+        big = rnd((3, 5, 48, 144), dtype)
+        compare(f"strided 4-d x (3,4,40,128) of (3,5,48,144) {short}",
+                big[:, 1:, 3:43, 8:136], rnd((4, 128, 96), dtype, 0.05))
+        # granite's serving shapes: both products at prefill and decode
+        for label, (B, E, C, D, F) in (("prefill", GMM_PREFILL),
+                                       ("decode", GMM_DECODE)):
+            x = rnd((B, E, C, D), dtype)
+            wi = rnd((E, D, F), dtype, D ** -0.5)
+            h = rnd((B, E, C, F), dtype)
+            wo = rnd((E, F, D), dtype, F ** -0.5)
+            e1 = compare(f"granite {label} x{(B, E, C, D)} @ wi{(E, D, F)} "
+                         f"{short}", x, wi)
+            e2 = compare(f"granite {label} h{(B, E, C, F)} @ wo{(E, F, D)} "
+                         f"{short}", h, wo)
+            if dtype == torch.bfloat16 and label == "prefill":
+                err = max(e1, e2)
+    return err
+
+
+def gmm_timing_phase(torch, gm, gen):
+    """The wi product (x @ w_gate) at granite's prefill and decode shapes:
+    kernel, plain version and torch.bmm (a yardstick, over an expert-major
+    copy of x made outside the timed region) beside the bound.  Times are
+    device time (``device_ms``); the kernel's CUDA-event time per call,
+    host launch included, is printed beside it.  Each call takes the next
+    of several input sets that together exceed the L2 four times, so it
+    reads its weights from device memory, as each layer of a serve step
+    does."""
+    print("gmm timing, granite-moe-1b-a400m's wi product, bfloat16, cold "
+          "L2 (device time, mean of 20 calls):")
+    out = {}
+    for label, (B, E, C, D, F) in (("prefill", GMM_PREFILL),
+                                   ("decode", GMM_DECODE)):
+        nbytes = (B * E * C * D + E * D * F + B * E * C * F) * 2
+        sets = []
+        for _ in range(max(2, -(-4 * int(L2_BYTES) // nbytes))):
+            x = torch.randn((B, E, C, D), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            w = (torch.randn((E, D, F), generator=gen, device="cuda")
+                 * D ** -0.5).to(torch.bfloat16)
+            sets.append((x, w, x.transpose(0, 1).reshape(E, B * C, D)))
+
+        def rotating(call, n=len(sets)):
+            state = {"i": 0}
+
+            def fn():
+                state["i"] = (state["i"] + 1) % n
+                return call(*sets[state["i"]])
+            return fn
+
+        kernel = rotating(lambda x, w, _: gm.grouped_matmul(x, w))
+        ms = device_ms(torch, kernel)
+        event_ms = time_ms(torch, kernel, iters=20)
+        plain_ms = device_ms(torch, rotating(
+            lambda x, w, _: gm.grouped_matmul(x, w, impl="ref")), 5)
+        library_ms = device_ms(torch, rotating(
+            lambda _, w, x_em: torch.bmm(x_em, w)))
+        # bound: 2 FLOP per multiply-add; x and w read once, out written once
+        flops = 2 * B * E * C * D * F
+        t_ops = flops / PEAK_FLOPS["torch.bfloat16"] * 1e3
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        bound_ms = max(t_ops, t_bytes)
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        print(f"  {label} x{(B, E, C, D)} @ w{(E, D, F)}, {len(sets)} input "
+              f"sets: gmm kernel {ms:.4f} ms (events, launch included: "
+              f"{event_ms:.4f} ms) | plain {plain_ms:.4f} ms | bmm "
+              f"(yardstick) {library_ms:.4f} ms | bound {bound_ms:.4f} ms "
+              f"({bound_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} "
+              "MB)")
+        out[label] = {"ms": ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by}
+        del sets
+    return out
+
+
+def serve_phase(torch, np, fa, gm, arch, expect):
+    """Serve ``arch`` at full width and check it.  Returns the launches of
+    each kernel during the served run alone: {"flash": n, "gmm": n}."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params, prefill
+    from repro_torch.models import moe as moe_mod
     from repro_torch.serving.engine import TorchServeEngine
 
-    cfg = get_config("qwen3-0.6b")
+    cfg = get_config(arch)
     check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-           cfg.head_dim, cfg.vocab_size, cfg.dtype)
-          == (28, 1024, 16, 8, 128, 151936, "bfloat16"),
-          f"unexpected qwen3-0.6b config {cfg}")
+           cfg.head_dim, cfg.vocab_size, cfg.n_experts, cfg.n_experts_active)
+          == expect and cfg.dtype == "bfloat16",
+          f"unexpected {arch} config {cfg}")
+    is_moe = cfg.block_pattern[0] == "moe"
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
@@ -234,7 +399,20 @@ def serve_phase(torch, np, fa, gen):
     prefill_ms, decode_ms, finite, first = [], [], [], {}
     run_prefill, run_decode = eng._prefill, eng._decode
 
+    # the experts each MoE layer picks, recorded during one prefill
+    routing = None
+    router_topk = moe_mod.router_topk
+
+    def recording_router_topk(router, x, top_k):
+        out = router_topk(router, x, top_k)
+        if routing is not None:
+            routing.append(out[3].sort(dim=-1).values)
+        return out
+
     def timed_prefill(p, batch):
+        nonlocal routing
+        if not first:
+            routing = []
         torch.cuda.synchronize()
         t = time.perf_counter()
         logits, cache = run_prefill(p, batch)
@@ -244,6 +422,7 @@ def serve_phase(torch, np, fa, gen):
         if not first:
             first["tokens"] = batch["tokens"].clone()
             first["logits"] = logits.clone()
+            first["routing"], routing = routing, None
         return logits, cache
 
     def timed_decode(p, cache, tok):
@@ -256,21 +435,31 @@ def serve_phase(torch, np, fa, gen):
         return logits, cache
 
     eng._prefill, eng._decode = timed_prefill, timed_decode
-    fa.launches = 0                       # count the main path alone
-    t0 = time.perf_counter()
-    out = eng.generate(prompts, GEN_LEN)
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    launches = fa.launches
+    moe_mod.router_topk = recording_router_topk
+    try:
+        fa.launches = gm.launches = 0        # count the main path alone
+        t0 = time.perf_counter()
+        out = eng.generate(prompts, GEN_LEN)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {"flash": fa.launches, "gmm": gm.launches}
+        with torch.no_grad():
+            routing = []
+            ref_logits, _ = prefill(cfg, params, {"tokens": first["tokens"]},
+                                    max_len, impl="ref")
+            ref_routing, routing = routing, None
+    finally:
+        moe_mod.router_topk = router_topk
 
-    waves = len(prefill_ms)
+    waves, steps = len(prefill_ms), len(decode_ms)
+    want = {"flash": cfg.n_layers * waves,
+            "gmm": 3 * cfg.n_layers * (waves + steps) if is_moe else 0}
     adm = eng.admission
-    print(f"  waves={waves} flash launches={launches} "
-          f"(want {cfg.n_layers} x {waves}) stat_fast={adm.stat_fast} "
+    print(f"  waves={waves} decode steps={steps} launches={launches} "
+          f"(want {want}) stat_fast={adm.stat_fast} "
           f"stat_parked={adm.stat_parked}")
     check(waves == 3, f"expected 3 prefill waves, got {waves}")
-    check(launches == cfg.n_layers * waves,
-          f"flash launches {launches} != {cfg.n_layers} x {waves}")
+    check(launches == want, f"launches {launches} != {want}")
     check((adm.stat_fast, adm.stat_parked) == (8, 2),
           f"admission counts {adm.stat_fast}/{adm.stat_parked} != 8/2")
     check(bool(torch.stack(finite).all()), "non-finite logits")
@@ -278,23 +467,29 @@ def serve_phase(torch, np, fa, gen):
           and out.min() >= 0 and out.max() < cfg.vocab_padded,
           f"bad generated tokens: shape {out.shape}")
 
-    with torch.no_grad():
-        ref_logits, _ = prefill(cfg, params, {"tokens": first["tokens"]},
-                                max_len, impl="ref")
-    got, want = first["logits"].float(), ref_logits.float()
-    err = (got - want).abs().max().item()
-    scale = want.abs().max().item()
-    agree = int((got.argmax(-1) == want.argmax(-1)).sum().item())
-    print(f"  first-wave prefill logits, flash vs plain attention: "
+    got, ref = first["logits"].float(), ref_logits.float()
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    agree = int((got.argmax(-1) == ref.argmax(-1)).sum().item())
+    print(f"  first-wave prefill logits, kernels vs plain versions: "
           f"max_abs_err={err:.4e} tol={LOGIT_RTOL * scale:.4e} "
           f"(max |logit| {scale:.3f}); greedy tokens agree "
           f"{agree}/{got.shape[0]}")
+    if is_moe:
+        check(len(first["routing"]) == len(ref_routing) == cfg.n_layers,
+              "routing was not recorded once a layer")
+        same = [int((a == b).all(-1).sum().item())
+                for a, b in zip(first["routing"], ref_routing)]
+        n = ref_routing[0].shape[0] * ref_routing[0].shape[1]
+        print(f"  top-{cfg.n_experts_active} expert sets agree for "
+              f"{sum(same)} of {n * len(same)} (token, layer) pairs of the "
+              f"first wave; by layer: {same} of {n} each")
     check(err <= LOGIT_RTOL * scale, "prefill logits disagree")
 
     tokens = N_STREAMS * GEN_LEN
     print(f"  prefill ms per wave: {[round(t, 3) for t in prefill_ms]}")
     print(f"  decode ms per step: median {statistics.median(decode_ms):.3f} "
-          f"over {len(decode_ms)} steps")
+          f"over {steps} steps")
     print(f"  generated {tokens} tokens in {wall_s:.3f} s: "
           f"{tokens / wall_s:.1f} tokens/s (re-prefill per wave included)")
     print(f"  stream 0 tokens: {out[0].tolist()}")
@@ -368,6 +563,7 @@ def main() -> int:
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.moe_gmm import ops as gm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -376,19 +572,30 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     print(f"device: {name} x{torch.cuda.device_count()} torch "
           f"{torch.__version__} cuda {torch.version.cuda}")
+    libs = {"flash_fwd": fa, "moe_gmm": gm}
     t0 = time.perf_counter()
-    fa.build()
-    print(f"build: flash_fwd in {time.perf_counter() - t0:.2f} s")
-    log = _build.library_path("flash_fwd", fa._SOURCES).with_suffix(".log")
-    if log.exists():
-        print(log.read_text().strip())
+    with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source
+        for job in [pool.submit(mod.build) for mod in libs.values()]:
+            job.result()
+    print(f"build: {' and '.join(libs)} in {time.perf_counter() - t0:.2f} s")
+    for lib, mod in libs.items():
+        log = _build.library_path(lib, mod._SOURCES).with_suffix(".log")
+        if log.exists():
+            print(log.read_text().strip())
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    max_abs_err, inputs = kernel_phase(torch, fa, gen)
+    flash_err, inputs = flash_kernel_phase(torch, fa, gen)
     torch.cuda.synchronize()
-    times = timing_phase(torch, fa, inputs)
+    flash_times = flash_timing_phase(torch, fa, inputs)
     del inputs
-    launches = serve_phase(torch, np, fa, gen)
+    gmm_err = gmm_kernel_phase(torch, gm, gen)
+    gmm_times = gmm_timing_phase(torch, gm, gen)
+    launches = {"flash": 0, "gmm": 0}
+    for arch, expect in SERVED:
+        for kernel, n in serve_phase(torch, np, fa, gm, arch,
+                                     expect).items():
+            launches[kernel] += n
+    print(f"launches over both serve runs: {launches}")
 
     print(card_line())
     print(json.dumps({"kernels": [{
@@ -396,9 +603,17 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:78",
-        "launches": launches,
-        "max_abs_err": max_abs_err,
-        **times,
+        "launches": launches["flash"],
+        "max_abs_err": flash_err,
+        **flash_times,
+    }, {
+        "name": "moe_gmm",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/moe_gmm/csrc/gmm.cu",
+        "replaces": "src/repro/kernels/moe_gmm/kernel.py:42",
+        "launches": launches["gmm"],
+        "max_abs_err": gmm_err,
+        **gmm_times["prefill"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -23,7 +23,11 @@ ARCHS: List[str] = [
     "granite-moe-1b-a400m",
 ]
 
-PORTED: Dict[str, str] = {"qwen3-0.6b": "qwen3_0_6b"}
+PORTED: Dict[str, str] = {
+    "qwen3-0.6b": "qwen3_0_6b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+}
 
 
 def _mod(name: str):

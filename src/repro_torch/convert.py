@@ -3,8 +3,10 @@
 The reference keeps parameters as a nested dict whose ``layers`` subtree
 is stacked on a leading layer axis; the port keeps one module per layer.
 Names map one to one: ``params["layers"]["attn"]["wq"][i]`` is
-``Transformer.layers[i].attn.wq``.  numpy has no bf16, so arrays arrive
-widened to f32 and are cast to the port's dtype on the way in.
+``Transformer.layers[i].attn.wq`` and ``params["layers"]["moe"]["wi_gate"][i]``
+is ``Transformer.layers[i].moe.wi_gate``.  numpy has no bf16, so arrays
+arrive widened to f32 and are cast to each parameter's dtype on the way
+in: the model's dtype, and f32 for the MoE router, as in the reference.
 """
 
 from __future__ import annotations

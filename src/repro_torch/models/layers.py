@@ -66,10 +66,11 @@ class MLP(nn.Module):
 
 
 def dense_init_(w: torch.Tensor, generator: torch.Generator) -> None:
-    """N(0, 1/in_dim) for an (in, out) weight, drawn in f32."""
+    """N(0, 1/in_dim) for an (in, out) weight, or a stack (..., in, out)
+    of them, drawn in f32."""
     draw = torch.randn(w.shape, generator=generator, device=w.device,
                        dtype=torch.float32)
-    w.copy_(draw * (1.0 / math.sqrt(w.shape[0])))
+    w.copy_(draw * (1.0 / math.sqrt(w.shape[-2])))
 
 
 def embed_init_(w: torch.Tensor, generator: torch.Generator) -> None:

@@ -1,0 +1,151 @@
+"""Mixture-of-experts MLP with GCR-style capacity admission: the port of
+``repro.models.moe``.
+
+Expert capacity is the saturated shared resource and tokens are the
+contending threads.  Tokens are admitted to an expert's capacity buffer in
+priority order; with ``gcr_admission`` and a ``priority_offset`` the
+priority origin is rotated (GCR's periodic promotion shuffle), so the same
+tail positions are not always the ones dropped.  Dropped (passive) tokens
+fall through on the residual path.
+
+Dispatch is grouped per batch row, as in the reference: ranks, capacity
+and the scatter/gather are computed for each sequence on its own.  The
+reference's ``jax.vmap`` over rows is written out as batched tensor ops.
+The three expert products go through ``grouped_matmul``: the Hopper
+kernel for a CUDA tensor, the plain version for a CPU tensor.  Routing,
+the scatter, the SwiGLU and the combine are plain PyTorch, as they are
+plain XLA in the reference.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels.moe_gmm.ops import grouped_matmul
+from .layers import _param, dense_init_
+
+
+class MoE(nn.Module):
+    """Parameters of ``repro.models.moe.moe_params``.  The router is f32
+    whatever the model's dtype, as in the reference."""
+
+    def __init__(self, d_model: int, d_ff: int, n_experts: int, *, device,
+                 dtype) -> None:
+        super().__init__()
+        self.router = _param((d_model, n_experts), device, torch.float32)
+        self.wi_gate = _param((n_experts, d_model, d_ff), device, dtype)
+        self.wi_up = _param((n_experts, d_model, d_ff), device, dtype)
+        self.wo = _param((n_experts, d_ff, d_model), device, dtype)
+
+
+@torch.no_grad()
+def moe_init_(p: MoE, generator: torch.Generator) -> None:
+    """The reference's laws: every matrix N(0, 1/in_dim)."""
+    for w in (p.router, p.wi_gate, p.wi_up, p.wo):
+        dense_init_(w, generator)
+
+
+def _capacity(n_tokens: int, n_experts: int, top_k: int,
+              capacity_factor: float) -> int:
+    cap = int(n_tokens * top_k * capacity_factor / n_experts)
+    return max(8, ((cap + 7) // 8) * 8)   # pad to sublane multiple
+
+
+def router_topk(router: torch.Tensor, x: torch.Tensor, top_k: int):
+    """f32 router logits, probabilities, and the top-k gates (renormalised)
+    and experts of every token: (logits, probs, gate_vals, expert_idx)."""
+    logits = x.float() @ router                                # (B,S,E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_idx = torch.topk(probs, top_k, dim=-1)   # (B,S,k)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    return logits, probs, gate_vals, expert_idx
+
+
+def admission_ranks(expert_idx: torch.Tensor, n_experts: int,
+                    priority_offset: Optional[Union[int, torch.Tensor]]
+                    = None) -> torch.Tensor:
+    """expert_idx: (B,S,k) expert choices.  Returns the rank (B,S,k) of
+    each (token, slot) among its expert's earlier claimants in its row:
+    in token order, or with ``priority_offset`` in the order rotated to
+    start at token ``priority_offset % S`` (a cyclic shift, so the "sort"
+    by priority is a roll).
+
+    The claims are counted expert-major, (B,E,S*k), so the running count
+    is a scan along the contiguous last dim: the reference's
+    ``cumsum(one_hot)`` over the token axis is an outer-dim scan, which
+    on the card took longer than the expert products."""
+    B, S, k = expert_idx.shape
+    if priority_offset is not None:
+        off = priority_offset % S
+        pos = torch.arange(S, device=expert_idx.device)
+        order, unsort = (pos + off) % S, (pos - off) % S
+        return admission_ranks(expert_idx[:, order], n_experts)[:, unsort]
+    flat = expert_idx.reshape(B, 1, S * k)
+    experts = torch.arange(n_experts, device=expert_idx.device)[:, None]
+    claims = (flat == experts).cumsum(-1, dtype=torch.int32)  # inclusive
+    return (claims.gather(1, flat) - 1).reshape(B, S, k)
+
+
+def moe_mlp(
+    p: MoE,
+    x: torch.Tensor,                 # (B, S, D)
+    *,
+    n_experts: int,
+    top_k: int,
+    capacity_factor: float = 1.25,
+    gcr_admission: bool = False,
+    priority_offset: Optional[Union[int, torch.Tensor]] = None,
+    impl: str = "auto",              # expert products: auto | ref
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Returns (output (B,S,D) in x's dtype, aux metrics incl. the
+    load-balance loss), as ``repro.models.moe.moe_mlp``."""
+    B, S, D = x.shape
+    E, k = n_experts, top_k
+    logits, probs, gate_vals, expert_idx = router_topk(p.router, x, k)
+    cap = _capacity(S, E, k, capacity_factor)
+
+    rank_in_expert = admission_ranks(
+        expert_idx, E, priority_offset if gcr_admission else None)
+    admitted = rank_in_expert < cap                            # active set
+    gate_vals = gate_vals * admitted                           # passive -> 0
+
+    # --- scatter: each capacity slot (b, e, c) records which token it holds;
+    # unfilled slots read a zero row and dropped slots land in one discard
+    # slot, the reference's discard row ----------------------------------
+    rows = torch.arange(B, device=x.device)[:, None, None]
+    flat_c = torch.where(admitted, rank_in_expert, 0)          # (B,S,k)
+    slot = torch.where(admitted, (rows * E + expert_idx) * cap + flat_c,
+                       B * E * cap)
+    token = (rows * S + torch.arange(S, device=x.device)[:, None]
+             ).expand(B, S, k)
+    src = torch.full((B * E * cap + 1,), B * S, dtype=torch.long,
+                     device=x.device)
+    src.index_copy_(0, slot.reshape(-1), token.reshape(-1))
+    x_pad = torch.cat([x.reshape(B * S, D), x.new_zeros(1, D)])
+    expert_in = x_pad[src[:-1]].view(B, E, cap, D)
+
+    h = F.silu(grouped_matmul(expert_in, p.wi_gate, impl=impl)) \
+        * grouped_matmul(expert_in, p.wi_up, impl=impl)
+    expert_out = grouped_matmul(h, p.wo, impl=impl)            # (B,E,C,D)
+
+    # --- gather back (dropped slots read slot 0 of their expert, under a
+    # zero gate, as in the reference) and combine in x's dtype -----------
+    gathered = expert_out.reshape(B * E * cap, D)[
+        ((rows * E + expert_idx) * cap + flat_c).reshape(-1)]
+    gathered = gathered.view(B, S, k, D) * gate_vals[..., None].to(x.dtype)
+    out = gathered.sum(dim=2)
+
+    # aux: load-balance loss (Switch) + router z-loss + drop fraction
+    density = F.one_hot(expert_idx, E).float().mean(dim=(0, 1, 2)) * E
+    router_prob = probs.mean(dim=(0, 1)) * E
+    aux = {
+        "moe_lb_loss": (density * router_prob).mean(),
+        "moe_z_loss": torch.logsumexp(logits, dim=-1).square().mean(),
+        "moe_drop_frac": 1.0 - admitted.float().mean(),
+    }
+    return out, aux
+

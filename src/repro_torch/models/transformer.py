@@ -1,5 +1,6 @@
-"""Model assembly for the ``attn`` block kind: embeddings -> layer stack ->
-LM head.  The port of ``repro.models.transformer`` for dense GQA decoders.
+"""Model assembly for the ``attn`` and ``moe`` block kinds: embeddings ->
+layer stack -> LM head.  The port of ``repro.models.transformer`` for GQA
+decoders with a dense SwiGLU MLP or a mixture of experts.
 
 Two serving modes share the block code, as in the reference:
   prefill : full prompt, caches written (ring buffers);
@@ -9,7 +10,8 @@ the teacher-forcing test holds prefill and decode against.
 
 Parameters live in a ``Transformer`` module whose parameter names follow
 the reference's pytree (``layers.<i>.attn.wq`` for the reference's
-``params["layers"]["attn"]["wq"][i]``); caches are
+``params["layers"]["attn"]["wq"][i]``, ``layers.<i>.moe.wi_gate`` for
+``params["layers"]["moe"]["wi_gate"][i]``); caches are
 ``{"pos": int, "layers": [{"k", "v"}, ...]}`` and are updated in place.
 """
 
@@ -23,6 +25,7 @@ from torch import nn
 from .. import resolve_device
 from ..config import ModelConfig
 from . import layers as L
+from . import moe as MOE
 
 
 def _torch_dtype(name: str) -> torch.dtype:
@@ -33,16 +36,18 @@ def _torch_dtype(name: str) -> torch.dtype:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if (set(cfg.block_pattern) != {"attn"} or cfg.shared_attn_every
-            or cfg.n_enc_layers or cfg.frontend != "none"):
+    if (set(cfg.block_pattern) not in ({"attn"}, {"moe"})
+            or cfg.shared_attn_every or cfg.n_enc_layers
+            or cfg.frontend != "none"):
         raise NotImplementedError(
-            f"{cfg.name}: repro_torch serves dense attention decoders only "
-            "so far (MoE, Mamba2, RWKV6, encoder-decoder and frontends are "
-            "later slices)")
+            f"{cfg.name}: repro_torch serves attention decoders with a dense "
+            "or MoE MLP only so far (Mamba2, RWKV6, encoder-decoder and "
+            "frontends are later slices)")
 
 
 class Block(nn.Module):
-    """One ``attn`` layer: ln1, attn, ln2, mlp."""
+    """One layer: ln1, attn, ln2, and ``mlp`` (``attn`` kind) or ``moe``
+    (``moe`` kind)."""
 
     def __init__(self, cfg: ModelConfig, *, device, dtype) -> None:
         super().__init__()
@@ -51,7 +56,12 @@ class Block(nn.Module):
                                 cfg.head_dim, cfg.qk_norm, device=device,
                                 dtype=dtype)
         self.ln2 = L._param((cfg.d_model,), device, dtype)
-        self.mlp = L.MLP(cfg.d_model, cfg.d_ff, device=device, dtype=dtype)
+        if cfg.block_pattern[0] == "moe":
+            self.moe = MOE.MoE(cfg.d_model, cfg.moe_d_ff, cfg.n_experts,
+                               device=device, dtype=dtype)
+        else:
+            self.mlp = L.MLP(cfg.d_model, cfg.d_ff, device=device,
+                             dtype=dtype)
 
 
 class Transformer(nn.Module):
@@ -82,10 +92,10 @@ class Transformer(nn.Module):
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> Transformer:
     """The reference's shapes and laws (``init_params``, ``dense_init``,
-    ``embed_init``, norms at one), drawn from ``generator``, which must live
-    on ``device``.  torch and jax.random give different numbers from one
-    seed: to compare with the reference, carry its weights over with
-    ``convert.params_from_numpy``."""
+    ``embed_init``, ``moe_params``, norms at one; the MoE router in f32),
+    drawn from ``generator``, which must live on ``device``.  torch and
+    jax.random give different numbers from one seed: to compare with the
+    reference, carry its weights over with ``convert.params_from_numpy``."""
     params = Transformer(cfg, device)
     L.embed_init_(params.embed, generator)
     params.final_norm.fill_(1.0)
@@ -93,9 +103,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     for blk in params.layers:
         blk.ln1.fill_(1.0)
         blk.ln2.fill_(1.0)
-        for w in (blk.attn.wq, blk.attn.wk, blk.attn.wv, blk.attn.wo,
-                  blk.mlp.wi_gate, blk.mlp.wi_up, blk.mlp.wo):
+        for w in (blk.attn.wq, blk.attn.wk, blk.attn.wv, blk.attn.wo):
             L.dense_init_(w, generator)
+        if hasattr(blk, "moe"):
+            MOE.moe_init_(blk.moe, generator)
+        else:
+            for w in (blk.mlp.wi_gate, blk.mlp.wi_up, blk.mlp.wo):
+                L.dense_init_(w, generator)
         if cfg.qk_norm:
             blk.attn.q_norm.fill_(1.0)
             blk.attn.k_norm.fill_(1.0)
@@ -127,8 +141,10 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None) -> Dict:
 
 
 def _apply_attn_block(cfg: ModelConfig, p: Block, x, positions, cache,
-                      cache_pos: int, *, decode: bool, impl: str = "auto"):
-    """attn + mlp block.  Returns (x, cache)."""
+                      cache_pos: int, *, decode: bool, impl: str = "auto",
+                      moe_offset=None):
+    """attn + mlp/moe block.  Returns (x, cache, aux); aux holds the MoE
+    metrics and is empty for a dense block."""
     h = L.rms_norm(x, p.ln1, cfg.norm_eps)
     attn_out, cache = L.multihead_attention(
         p.attn, h, positions, cache, cache_pos,
@@ -138,18 +154,30 @@ def _apply_attn_block(cfg: ModelConfig, p: Block, x, positions, cache,
         impl=impl)
     x = x + attn_out
     h2 = L.rms_norm(x, p.ln2, cfg.norm_eps)
-    return x + L.mlp(p.mlp, h2), cache
+    if hasattr(p, "moe"):
+        moe_out, aux = MOE.moe_mlp(
+            p.moe, h2, n_experts=cfg.n_experts, top_k=cfg.n_experts_active,
+            capacity_factor=cfg.moe_capacity_factor,
+            gcr_admission=cfg.gcr_moe, priority_offset=moe_offset,
+            impl=impl)
+        return x + moe_out, cache, aux
+    return x + L.mlp(p.mlp, h2), cache, {}
 
 
 def _stack(cfg: ModelConfig, params: Transformer, x, positions,
            caches: Optional[Dict], cache_pos: int, *, decode: bool,
-           impl: str = "auto"):
-    """Run the decoder stack (the reference's layer scan, as a loop)."""
+           impl: str = "auto", moe_offset=None):
+    """Run the decoder stack (the reference's layer scan, as a loop).
+    Returns (x, caches, aux), aux averaged over layers."""
+    auxes = []
     for i, lp in enumerate(params.layers):
         lcache = caches["layers"][i] if caches is not None else None
-        x, _ = _apply_attn_block(cfg, lp, x, positions, lcache, cache_pos,
-                                 decode=decode, impl=impl)
-    return x, caches
+        x, _, aux = _apply_attn_block(cfg, lp, x, positions, lcache,
+                                      cache_pos, decode=decode, impl=impl,
+                                      moe_offset=moe_offset)
+        auxes.append(aux)
+    aux = {k: torch.stack([a[k] for a in auxes]).mean() for k in auxes[0]}
+    return x, caches, aux
 
 
 # ---------------------------------------------------------------------------
@@ -166,8 +194,8 @@ def forward_logits(cfg: ModelConfig, params: Transformer,
     """Full-sequence logits (B, S, V) without a cache."""
     x = params.embed[tokens]
     positions = _positions(0, tokens.shape[1], x.device)
-    x, _ = _stack(cfg, params, x, positions, None, 0, decode=False,
-                  impl=impl)
+    x, _, _ = _stack(cfg, params, x, positions, None, 0, decode=False,
+                     impl=impl)
     return L.rms_norm(x, params.final_norm, cfg.norm_eps) @ params.lm_head
 
 
@@ -175,14 +203,15 @@ def prefill(cfg: ModelConfig, params: Transformer, batch: Dict,
             max_len: int, impl: str = "auto"):
     """Process the prompt ``batch["tokens"]`` (B, S); returns (last-token
     logits (B, 1, V), populated cache).  ``impl="ref"`` sends prompt
-    attention to the plain version even on the card (for comparing)."""
+    attention and the expert products to their plain versions even on the
+    card (for comparing)."""
     tokens = batch["tokens"]
     x = params.embed[tokens]
     B, S = tokens.shape
     positions = _positions(0, S, x.device)
     caches = init_cache(cfg, B, max_len, x.device)
-    x, caches = _stack(cfg, params, x, positions, caches, 0, decode=False,
-                       impl=impl)
+    x, caches, _ = _stack(cfg, params, x, positions, caches, 0,
+                          decode=False, impl=impl)
     caches["pos"] = S
     x = L.rms_norm(x[:, -1:], params.final_norm, cfg.norm_eps)
     return x @ params.lm_head, caches
@@ -195,7 +224,8 @@ def decode_step(cfg: ModelConfig, params: Transformer, caches: Dict,
     x = params.embed[tokens]
     pos = caches["pos"]
     positions = _positions(pos, tokens.shape[1], x.device)
-    x, caches = _stack(cfg, params, x, positions, caches, pos, decode=True)
+    x, caches, _ = _stack(cfg, params, x, positions, caches, pos,
+                          decode=True)
     caches["pos"] = pos + tokens.shape[1]
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     return x @ params.lm_head, caches

@@ -40,7 +40,7 @@ assert callable(chip_smoke.main)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -56,7 +56,14 @@ def test_port_and_chip_smoke_import_with_jax_and_repro_blocked():
                           cwd=REPO, env=_env(), capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 15       # every module was imported
+    names = proc.stdout.split()
+    assert len(names) >= 25                     # every module was imported
+    for name in ("repro_torch.models.moe", "repro_torch.kernels.moe_gmm",
+                 "repro_torch.kernels.moe_gmm.ops",
+                 "repro_torch.kernels.moe_gmm.ref",
+                 "repro_torch.configs.granite_moe_1b_a400m",
+                 "repro_torch.configs.mixtral_8x7b"):
+        assert name in names, name
 
 
 def _no_cuda():
@@ -72,16 +79,17 @@ def test_entry_points_without_device_raise_when_cuda_is_absent():
     from repro_torch.models import Transformer, init_cache, init_params
     from repro_torch.serving.engine import TorchServeEngine
 
-    cfg = get_smoke_config("qwen3-0.6b")
     assert resolve_device("cpu") == torch.device("cpu")
-    for call in (lambda: resolve_device(),
-                 lambda: init_cache(cfg, 1, 8),
-                 lambda: Transformer(cfg),
-                 lambda: init_params(cfg, torch.Generator()),
-                 lambda: TorchServeEngine(cfg, None, 3, 32),
-                 lambda: serve.main([])):
-        with pytest.raises(RuntimeError, match="CUDA"):
-            call()
+    for arch in ("qwen3-0.6b", "granite-moe-1b-a400m"):
+        cfg = get_smoke_config(arch)
+        for call in (lambda: resolve_device(),
+                     lambda: init_cache(cfg, 1, 8),
+                     lambda: Transformer(cfg),
+                     lambda: init_params(cfg, torch.Generator()),
+                     lambda: TorchServeEngine(cfg, None, 3, 32),
+                     lambda: serve.main(["--arch", arch])):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                call()
 
 
 def test_chip_smoke_fails_without_cuda_or_outside_a_checkout(tmp_path):
