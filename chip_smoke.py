@@ -3,35 +3,43 @@
 
 Run from the root of a checkout:  ``python3 chip_smoke.py``
 
-It builds the port's two CUDA kernel libraries from the checkout's
+It builds the port's three CUDA kernel libraries from the checkout's
 sources (one ``nvcc`` each, started together) and then:
 
 1. prints the card (``nvidia-smi`` name and power limit) and the build time;
 2. holds the flash-attention kernel against its plain PyTorch version on
    the card: the reference kernel tests' sweep in f32 and bf16, causal,
-   windowed and non-causal, plus GQA, ragged lengths, ring-buffer
-   positions with unwritten (-1) slots, strided views and both served
-   models' prefill shapes;
+   windowed and non-causal, plus GQA, ragged lengths, head dim 80,
+   ring-buffer positions with unwritten (-1) slots, strided views and the
+   three served models' prefill shapes;
 3. times the kernel, the plain version and PyTorch's
    ``scaled_dot_product_attention`` (a yardstick only; the port never
-   calls it) at qwen3's prefill shape, beside the card's bound;
+   calls it) at qwen3's and zamba2's prefill shapes, beside the card's
+   bound;
 4. holds the grouped expert matmul (MoE) kernel against its plain
    version in f32 and bf16: the reference sweep, ragged capacities, a
    strided 4-d expert buffer and granite-moe's prefill and decode shapes;
    then times it, the plain version and ``torch.bmm`` (a yardstick only)
    at those two shapes, beside the card's bound;
-5. serves full-width qwen3-0.6b (28 layers) and then full-width
-   granite-moe-1b-a400m (24 layers, 32 experts top-8), random weights
-   from seed 0, under GCR admission: 8 streams on 3 slots, prompt 1024,
-   16 generated tokens each.  Each run starts with the launch counts at 0
-   and checks them after (flash once a layer a wave; for granite also the
-   expert products, three a layer a forward pass), the admission counts,
+5. holds the Mamba2 SSD scan kernel against its plain version in f32 and
+   bf16: the reference sweep, ragged lengths, an initial state, a strided
+   view and zamba2's prefill shape; then times it and the plain version
+   there, beside the card's bound (no single PyTorch call computes it);
+6. serves full-width qwen3-0.6b (28 layers), granite-moe-1b-a400m (24
+   layers, 32 experts top-8) and zamba2-2.7b (54 Mamba2 layers and a
+   shared attention block after every 6th), one after the other, random
+   weights from seed 0, under GCR admission: 8 streams on 3 slots, prompt
+   1024, 16 generated tokens each.  Each run starts with the launch
+   counts at 0 and checks them after (flash once an attention block a
+   wave; for granite also the expert products, three a layer a forward
+   pass; for zamba2 the scan once a layer a wave), the admission counts,
    finite logits, and the first wave's prefill logits against the same
-   wave on the plain versions; for granite it also counts the tokens
+   wave on the plain versions (and prints both runs' distance from that
+   wave in f32 on the plain versions); for granite it also counts the tokens
    whose top-8 experts agree between the two.  Each run then profiles
    one prefill wave and a few decode steps (device busy time, idle share,
-   the heaviest kernels);
-6. prints one JSON line describing every kernel of the path, then, as
+   the heaviest kernels) and frees its model;
+7. prints one JSON line describing every kernel of the path, then, as
    the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero.  Without CUDA, or outside a checkout, it
@@ -40,6 +48,8 @@ exits non-zero before doing anything.
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -74,15 +84,39 @@ GMM_SWEEP = [(4, 128, 256, 128), (2, 256, 512, 256)]
 GMM_PREFILL = (3, 32, 320, 1024, 512)
 GMM_DECODE = (3, 32, 8, 1024, 512)
 
+# SSD scan: f32 atol = rtol (tests/test_kernels.py; the kernel's chunk of
+# 64 against the plain version's 256 moves y by about 4e-5); bf16
+# normalised by max |want|, one rounding of y to bf16 in both
+SSD_TOL = {"torch.float32": 1e-3, "torch.bfloat16": 2e-2}
+# (B, S, H, P, N) of the reference kernel tests' ssd sweep
+SSD_SWEEP = [(2, 256, 4, 64, 64), (1, 512, 2, 64, 32), (2, 128, 8, 32, 64)]
+# zamba2-2.7b's prefill scan when serving 3 slots: H = 5120 / 64 heads
+SSD_PREFILL = (3, 1024, 80, 64, 64)
+SSD_CHUNK = 256     # the reference model's chunk, for the bound's count
+# the port's CUDA kernels, as the profiler names them
+PORT_KERNELS = ("::flash_fwd_", "::gmm_", "::ssd_")
+
 # the serving runs: one GCR engine, more streams than slots
 N_STREAMS, N_SLOTS, PROMPT_LEN, GEN_LEN = 8, 3, 1024, 16
-# (arch, layers, d_model, heads, kv heads, head dim, vocab, experts, top-k)
-SERVED = [("qwen3-0.6b", (28, 1024, 16, 8, 128, 151936, 0, 0)),
-          ("granite-moe-1b-a400m", (24, 1024, 16, 8, 64, 49155, 32, 8))]
+# each served arch and the published widths its config must have
+SERVED = [
+    ("qwen3-0.6b", dict(n_layers=28, d_model=1024, n_heads=16, n_kv_heads=8,
+                        head_dim=128, vocab_size=151936,
+                        block_pattern=("attn",))),
+    ("granite-moe-1b-a400m", dict(
+        n_layers=24, d_model=1024, n_heads=16, n_kv_heads=8, head_dim=64,
+        vocab_size=49155, block_pattern=("moe",), n_experts=32,
+        n_experts_active=8)),
+    ("zamba2-2.7b", dict(
+        n_layers=54, d_model=2560, n_heads=32, n_kv_heads=32, head_dim=80,
+        vocab_size=32000, block_pattern=("mamba2",), d_inner=5120,
+        ssm_heads=80, ssm_head_dim=64, ssm_state=64, shared_attn_every=6)),
+]
 # prefill logits, kernels vs plain versions, both in bf16: flash rounds P
 # and the output to bf16 in other places than plain attention, the gmm
-# kernel sums in another order before its one rounding, and 24 to 28
-# layers carry those one-ulp differences to the logits; in the MoE a
+# kernel sums in another order before its one rounding, the ssd kernel
+# rounds its masked scores and scans in chunks of another size, and 24 to
+# 63 blocks carry those one-ulp differences to the logits; in the MoE a
 # routing near-tie may also send a token to another expert.  Allowed: 5%
 # of the largest logit (about 13 bf16 ulps at that scale).
 LOGIT_RTOL = 0.05
@@ -145,8 +179,8 @@ def device_ms(torch, fn, iters: int = 20) -> float:
 
 def flash_kernel_phase(torch, fa, gen):
     """Every case: kernel vs plain on the same inputs.  Returns the max
-    abs error at the two served models' prefill shapes and qwen3's
-    inputs, for the timing."""
+    abs error at the served models' prefill shapes and the inputs of each
+    of those shapes, by arch, for the timing."""
     def rnd(shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
 
@@ -183,12 +217,16 @@ def flash_kernel_phase(torch, fa, gen):
                 compare(f"sweep B{B} S{S} T{T} H{H} D{D} {short} "
                         f"causal={causal} window={window}", dtype, got, want)
 
-        # GQA (qwen3's 16/8 heads), ragged lengths, the reduced head dim
+        # GQA (qwen3's 16/8 heads), ragged lengths, the reduced head dim,
+        # zamba2's head dim 80
         for (B, S, Hq, Hkv, D, window) in [(2, 256, 16, 8, 128, 0),
                                            (2, 12, 4, 2, 64, 0),
                                            (1, 1000, 4, 2, 128, 0),
                                            (1, 1000, 4, 2, 128, 100),
-                                           (3, 12, 4, 2, 16, 0)]:
+                                           (3, 12, 4, 2, 16, 0),
+                                           (2, 256, 8, 4, 80, 0),
+                                           (1, 1000, 4, 4, 80, 100),
+                                           (3, 12, 4, 4, 80, 0)]:
             q = rnd((B, S, Hq, D), dtype)
             k, v = rnd((B, S, Hkv, D), dtype), rnd((B, S, Hkv, D), dtype)
             positional(f"gqa/ragged B{B} S=T={S} Hq{Hq} Hkv{Hkv} D{D} "
@@ -212,20 +250,23 @@ def flash_kernel_phase(torch, fa, gen):
         positional(f"strided q/k/v views of a fused qkv {short}", dtype,
                    q, k, v, arange(384), arange(384), 0, True)
 
-    # the served models' prefill shapes: granite (D 64), then qwen3 (D 128)
-    errs = []
-    for arch, D in (("granite-moe-1b-a400m", 64), ("qwen3-0.6b", 128)):
-        B, S, Hq, Hkv = N_SLOTS, PROMPT_LEN, 16, 8
+    # the served models' prefill shapes
+    errs, inputs = [], {}
+    for arch, Hq, Hkv, D in (("granite-moe-1b-a400m", 16, 8, 64),
+                             ("qwen3-0.6b", 16, 8, 128),
+                             ("zamba2-2.7b", 32, 32, 80)):
+        B, S = N_SLOTS, PROMPT_LEN
         q = rnd((B, S, Hq, D), torch.bfloat16)
         k = rnd((B, S, Hkv, D), torch.bfloat16)
         v = rnd((B, S, Hkv, D), torch.bfloat16)
         errs.append(positional(
             f"{arch} prefill B{B} S=T={S} Hq{Hq} Hkv{Hkv} D{D} bfloat16",
             torch.bfloat16, q, k, v, arange(S), arange(S), 0, True))
-    return max(errs), (q, k, v, arange(S), arange(S))
+        inputs[arch] = (q, k, v, arange(S), arange(S))
+    return max(errs), inputs
 
 
-def flash_timing_phase(torch, fa, inputs):
+def flash_timing_phase(torch, fa, arch, inputs):
     q, k, v, q_pos, k_pos = inputs
     B, S, Hq, D = q.shape
     T = k.shape[1]
@@ -249,7 +290,7 @@ def flash_timing_phase(torch, fa, inputs):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     bound_ms = max(t_ops, t_bytes)
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    print(f"flash timing at qwen3's prefill shape B{B} S=T={S} Hq{Hq} "
+    print(f"flash timing at {arch}'s prefill shape B{B} S=T={S} Hq{Hq} "
           f"Hkv{k.shape[2]} D{D} {q.dtype} causal (median of 5):")
     print(f"  flash kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
           f"sdpa (yardstick) {library_ms:.4f} ms | bound {bound_ms:.4f} ms "
@@ -368,20 +409,146 @@ def gmm_timing_phase(torch, gm, gen):
     return out
 
 
-def serve_phase(torch, np, fa, gm, arch, expect):
-    """Serve ``arch`` at full width and check it.  Returns the launches of
-    each kernel during the served run alone: {"flash": n, "gmm": n}."""
+def ssd_kernel_phase(torch, sd, gen):
+    """Every case: kernel vs plain on the same inputs (y and the final
+    state), the reference tests' laws for the inputs.  Returns the max abs
+    error of y at zamba2's prefill shape (bf16)."""
+    def inputs(B, S, H, P, N, dtype):
+        def rnd(shape, scale):
+            return torch.randn(shape, generator=gen, device="cuda") * scale
+        a = -rnd((B, S, H), 0.1).abs()
+        return (rnd((B, S, H, P), 0.5).to(dtype), a,
+                rnd((B, S, N), 0.5).to(dtype), rnd((B, S, N), 0.5).to(dtype))
+
+    def compare(name, dtype, xdt, a, Bm, Cm, init=None):
+        y, state = sd.ssd(xdt, a, Bm, Cm, init)
+        want_y, want_state = sd.ssd(xdt, a, Bm, Cm, init, impl="ref")
+        check(y.shape == want_y.shape and y.dtype == xdt.dtype
+              and state.shape == want_state.shape
+              and state.dtype == torch.float32,
+              f"ssd kernel gave y {tuple(y.shape)} {y.dtype}, state "
+              f"{tuple(state.shape)} {state.dtype}: {name}")
+        tol = SSD_TOL[str(dtype)]
+        errs, oks = [], []
+        for got, want in ((y, want_y), (state, want_state)):
+            got, want = got.float(), want.float()
+            err = (got - want).abs().max().item()
+            if dtype == torch.float32:
+                ok = torch.allclose(got, want, atol=tol, rtol=tol)
+            else:
+                ok = err <= tol * want.abs().max().item()
+            errs.append(err)
+            oks.append(ok)
+        rule = ("atol=rtol" if dtype == torch.float32
+                else "normalised by max |want|,")
+        print(f"  {name:<52} max_abs_err y={errs[0]:.3e} state="
+              f"{errs[1]:.3e} ({rule} tol {tol:g}) "
+              f"{'ok' if all(oks) else 'FAIL'}")
+        check(all(oks), f"ssd kernel disagrees with plain: {name}")
+        return errs[0]
+
+    print("kernel phase: mamba2 ssd vs ssd_ref on the card")
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        short = str(dtype).replace("torch.", "")
+        for (B, S, H, P, N) in SSD_SWEEP:
+            compare(f"sweep B{B} S{S} H{H} P{P} N{N} {short}", dtype,
+                    *inputs(B, S, H, P, N, dtype))
+        # ragged lengths: the model's S is the prompt's, not a chunk multiple
+        for S in (1000, 12):
+            compare(f"ragged B2 S{S} H4 P64 N64 {short}", dtype,
+                    *inputs(2, S, 4, 64, 64, dtype))
+        # the prefill of a cache that already holds a state
+        init = torch.randn((2, 4, 64, 64), generator=gen, device="cuda")
+        compare(f"init_state B2 S300 H4 P64 N64 {short}", dtype,
+                *inputs(2, 300, 4, 64, 64, dtype), init)
+        # xdt, B and C as views of one wider projection, read in place
+        B, S, H, P, N = 2, 256, 4, 64, 64
+        proj = (torch.randn((B, S, H * P + 2 * N + 8), generator=gen,
+                            device="cuda") * 0.5).to(dtype)
+        a = -(torch.randn((B, S, H), generator=gen, device="cuda")
+              * 0.1).abs()
+        compare(f"strided views of one projection {short}", dtype,
+                proj[..., 8:8 + H * P].view(B, S, H, P), a,
+                proj[..., 8 + H * P:8 + H * P + N],
+                proj[..., 8 + H * P + N:])
+        e = compare(f"zamba2-2.7b prefill B{SSD_PREFILL[0]} "
+                    f"S{SSD_PREFILL[1]} H{SSD_PREFILL[2]} P{SSD_PREFILL[3]} "
+                    f"N{SSD_PREFILL[4]} {short}", dtype,
+                    *inputs(*SSD_PREFILL, dtype))
+        if dtype == torch.bfloat16:
+            err = e
+    return err
+
+
+def ssd_timing_phase(torch, sd, gen):
+    """The scan at zamba2's prefill shape, bf16, zero initial state: kernel
+    and plain version beside the bound.  Times are device time
+    (``device_ms``); the kernel's CUDA-event time per call, host launch
+    included, is printed beside it.  Each call takes the next of several
+    input sets that together exceed the L2 four times, as each layer of a
+    prefill meets its inputs cold."""
+    B, S, H, P, N = SSD_PREFILL
+    # each input read once, each output written once: xdt and y bf16, a
+    # f32, B and C bf16 (shared by the heads), the f32 final state
+    nbytes = 2 * B * S * H * P * 2 + B * S * H * 4 + 2 * B * S * N * 2 \
+        + B * H * P * N * 4
+    sets = []
+    for _ in range(max(2, -(-4 * int(L2_BYTES) // nbytes))):
+        a = -(torch.randn((B, S, H), generator=gen, device="cuda")
+              * 0.1).abs()
+        sets.append([(torch.randn(shape, generator=gen, device="cuda")
+                      * 0.5).to(torch.bfloat16)
+                     for shape in ((B, S, H, P), (B, S, N), (B, S, N))])
+        sets[-1].insert(1, a)
+
+    def rotating(impl, n=len(sets)):
+        state = {"i": 0}
+
+        def fn():
+            state["i"] = (state["i"] + 1) % n
+            return sd.ssd(*sets[state["i"]], impl=impl)
+        return fn
+
+    ms = device_ms(torch, rotating("auto"))
+    event_ms = time_ms(torch, rotating("auto"), iters=20)
+    plain_ms = device_ms(torch, rotating("ref"), 5)
+    # operations of the reference algorithm at its chunk (scores C B^T and
+    # their product with X per head over whole chunks, the states and the
+    # inter-chunk term), 2 FLOP per multiply-add; independent of the
+    # kernel's own chunk
+    flops = 2 * B * H * S * (SSD_CHUNK * N + SSD_CHUNK * P + 2 * P * N)
+    t_ops = flops / PEAK_FLOPS["torch.bfloat16"] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"ssd timing at zamba2-2.7b's prefill shape B{B} S{S} H{H} P{P} "
+          f"N{N} bfloat16, cold L2, {len(sets)} input sets (device time, "
+          f"mean of 20 calls):")
+    print(f"  ssd kernel {ms:.4f} ms (events, launch included: "
+          f"{event_ms:.4f} ms) | plain {plain_ms:.4f} ms | no library call "
+          f"| bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, "
+          f"{nbytes / 1e6:.2f} MB)")
+    del sets
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def serve_phase(torch, np, kernels, arch, expect):
+    """Serve ``arch`` at full width and check it.  ``kernels`` maps each
+    kernel's name to its ops module.  Returns the launches of each kernel
+    during the served run alone: {"flash": n, "gmm": n, "ssd": n}."""
     from repro_torch.configs import get_config
-    from repro_torch.models import init_params, prefill
+    from repro_torch.models import Transformer, init_params, prefill
     from repro_torch.models import moe as moe_mod
     from repro_torch.serving.engine import TorchServeEngine
 
     cfg = get_config(arch)
-    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-           cfg.head_dim, cfg.vocab_size, cfg.n_experts, cfg.n_experts_active)
-          == expect and cfg.dtype == "bfloat16",
+    got_widths = {k: getattr(cfg, k) for k in expect}
+    check(got_widths == expect and cfg.dtype == "bfloat16",
           f"unexpected {arch} config {cfg}")
-    is_moe = cfg.block_pattern[0] == "moe"
+    kind = cfg.block_pattern[0]
+    is_moe = kind == "moe"
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
@@ -437,23 +604,38 @@ def serve_phase(torch, np, fa, gm, arch, expect):
     eng._prefill, eng._decode = timed_prefill, timed_decode
     moe_mod.router_topk = recording_router_topk
     try:
-        fa.launches = gm.launches = 0        # count the main path alone
+        for mod in kernels.values():         # count the main path alone
+            mod.launches = 0
         t0 = time.perf_counter()
         out = eng.generate(prompts, GEN_LEN)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-        launches = {"flash": fa.launches, "gmm": gm.launches}
+        launches = {name: mod.launches for name, mod in kernels.items()}
         with torch.no_grad():
             routing = []
             ref_logits, _ = prefill(cfg, params, {"tokens": first["tokens"]},
                                     max_len, impl="ref")
             ref_routing, routing = routing, None
+            # the same wave in f32 on the plain versions: how far each bf16
+            # run is from it says whether the kernels add to bf16's drift
+            cfg32 = dataclasses.replace(cfg, dtype="float32")
+            params32 = Transformer(cfg32, "cuda")
+            params32.load_state_dict(params.state_dict())
+            f32_logits, _ = prefill(cfg32, params32,
+                                    {"tokens": first["tokens"]}, max_len,
+                                    impl="ref")
+            del params32
     finally:
         moe_mod.router_topk = router_topk
 
     waves, steps = len(prefill_ms), len(decode_ms)
-    want = {"flash": cfg.n_layers * waves,
-            "gmm": 3 * cfg.n_layers * (waves + steps) if is_moe else 0}
+    # prompt attention: every layer of an attention kind, else the shared
+    # block's invocations
+    n_attn = (cfg.n_layers // cfg.shared_attn_every if kind == "mamba2"
+              else cfg.n_layers)
+    want = {"flash": n_attn * waves,
+            "gmm": 3 * cfg.n_layers * (waves + steps) if is_moe else 0,
+            "ssd": cfg.n_layers * waves if kind == "mamba2" else 0}
     adm = eng.admission
     print(f"  waves={waves} decode steps={steps} launches={launches} "
           f"(want {want}) stat_fast={adm.stat_fast} "
@@ -475,6 +657,9 @@ def serve_phase(torch, np, fa, gm, arch, expect):
           f"max_abs_err={err:.4e} tol={LOGIT_RTOL * scale:.4e} "
           f"(max |logit| {scale:.3f}); greedy tokens agree "
           f"{agree}/{got.shape[0]}")
+    print(f"  against the same wave in f32 on the plain versions: plain bf16 "
+          f"max_abs_err={(ref - f32_logits).abs().max().item():.4e}, "
+          f"kernels bf16 {(got - f32_logits).abs().max().item():.4e}")
     if is_moe:
         check(len(first["routing"]) == len(ref_routing) == cfg.n_layers,
               "routing was not recorded once a layer")
@@ -497,6 +682,14 @@ def serve_phase(torch, np, fa, gm, arch, expect):
     profile_phase(torch, lambda: run_prefill(params, wave),
                   lambda c, t: run_decode(params, c, t))
     return launches
+
+
+def free_model(torch) -> None:
+    """Give the last model's memory back before the next one loads."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still "
+          "allocated")
 
 
 def profile_phase(torch, do_prefill, do_decode, n_decode: int = 8):
@@ -543,7 +736,10 @@ def profile_phase(torch, do_prefill, do_decode, n_decode: int = 8):
         for e in kernels:
             by_name[e.name] = by_name.get(e.name, 0.0) \
                 + e.time_range.elapsed_us() / 1e3 / n
-        for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+        # the six heaviest, and the port's own kernels wherever they rank
+        for kname, ms in [kv for i, kv in enumerate(ranked)
+                          if i < 6 or any(k in kv[0] for k in PORT_KERNELS)]:
             print(f"    {ms:9.3f} ms{per} {ms / busy_ms:6.1%}  {kname[:90]}")
 
 
@@ -563,6 +759,7 @@ def main() -> int:
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.mamba2_ssd import ops as sd
     from repro_torch.kernels.moe_gmm import ops as gm
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -572,12 +769,12 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     print(f"device: {name} x{torch.cuda.device_count()} torch "
           f"{torch.__version__} cuda {torch.version.cuda}")
-    libs = {"flash_fwd": fa, "moe_gmm": gm}
+    libs = {"flash_fwd": fa, "moe_gmm": gm, "mamba2_ssd": sd}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source
         for job in [pool.submit(mod.build) for mod in libs.values()]:
             job.result()
-    print(f"build: {' and '.join(libs)} in {time.perf_counter() - t0:.2f} s")
+    print(f"build: {', '.join(libs)} in {time.perf_counter() - t0:.2f} s")
     for lib, mod in libs.items():
         log = _build.library_path(lib, mod._SOURCES).with_suffix(".log")
         if log.exists():
@@ -586,16 +783,23 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     flash_err, inputs = flash_kernel_phase(torch, fa, gen)
     torch.cuda.synchronize()
-    flash_times = flash_timing_phase(torch, fa, inputs)
+    flash_times = flash_timing_phase(torch, fa, "qwen3-0.6b",
+                                     inputs["qwen3-0.6b"])
+    flash_timing_phase(torch, fa, "zamba2-2.7b", inputs["zamba2-2.7b"])
     del inputs
     gmm_err = gmm_kernel_phase(torch, gm, gen)
     gmm_times = gmm_timing_phase(torch, gm, gen)
-    launches = {"flash": 0, "gmm": 0}
+    ssd_err = ssd_kernel_phase(torch, sd, gen)
+    ssd_times = ssd_timing_phase(torch, sd, gen)
+    kernels = {"flash": fa, "gmm": gm, "ssd": sd}
+    launches = dict.fromkeys(kernels, 0)
     for arch, expect in SERVED:
-        for kernel, n in serve_phase(torch, np, fa, gm, arch,
+        free_model(torch)
+        for kernel, n in serve_phase(torch, np, kernels, arch,
                                      expect).items():
             launches[kernel] += n
-    print(f"launches over both serve runs: {launches}")
+    free_model(torch)
+    print(f"launches over the three serve runs: {launches}")
 
     print(card_line())
     print(json.dumps({"kernels": [{
@@ -614,6 +818,14 @@ def main() -> int:
         "launches": launches["gmm"],
         "max_abs_err": gmm_err,
         **gmm_times["prefill"],
+    }, {
+        "name": "mamba2_ssd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/mamba2_ssd/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/mamba2_ssd/kernel.py:77",
+        "launches": launches["ssd"],
+        "max_abs_err": ssd_err,
+        **ssd_times,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -2,8 +2,8 @@
 
 Fields and defaults are copied field for field, so a configuration file
 reads the same in both packages; only the derived values the port uses
-(``head_dim``, ``vocab_padded``) are carried over.  Training, mesh and
-hardware configs belong to later slices.
+(``head_dim``, ``vocab_padded``, ``d_inner``, ``ssm_heads``) are carried
+over.  Training, mesh and hardware configs belong to later slices.
 """
 
 from __future__ import annotations
@@ -75,3 +75,12 @@ class ModelConfig:
     def vocab_padded(self) -> int:
         """Vocab padded to a multiple of 128 (lane width x model shards)."""
         return pad_to(self.vocab_size, 128)
+
+    @property
+    def d_inner(self) -> int:
+        """Mamba2 inner width."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim

@@ -3,10 +3,12 @@
 The reference keeps parameters as a nested dict whose ``layers`` subtree
 is stacked on a leading layer axis; the port keeps one module per layer.
 Names map one to one: ``params["layers"]["attn"]["wq"][i]`` is
-``Transformer.layers[i].attn.wq`` and ``params["layers"]["moe"]["wi_gate"][i]``
-is ``Transformer.layers[i].moe.wi_gate``.  numpy has no bf16, so arrays
-arrive widened to f32 and are cast to each parameter's dtype on the way
-in: the model's dtype, and f32 for the MoE router, as in the reference.
+``Transformer.layers[i].attn.wq``, ``params["layers"]["moe"]["wi_gate"][i]``
+is ``Transformer.layers[i].moe.wi_gate``, and the unstacked
+``params["shared_attn"]["attn"]["wq"]`` is ``Transformer.shared_attn.attn.wq``.
+numpy has no bf16, so arrays arrive widened to f32 and are cast to each
+parameter's dtype on the way in: the model's dtype, and f32 for the MoE
+router and Mamba2's A_log, dt_bias and D, as in the reference.
 """
 
 from __future__ import annotations
@@ -73,25 +75,42 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig, device=None,
 
 def cache_from_numpy(tree: Mapping, device=None,
                      dtype: Optional[torch.dtype] = None) -> Dict:
-    """``{"pos", "layers": {"k", "v"}}`` stacked on the layer axis -> the
-    port's ``{"pos": int, "layers": [{"k", "v"}, ...]}``."""
+    """The reference's cache, stacked on a leading layer (or invocation)
+    axis -> the port's ``{"pos": int, "layers": [...], "shared": [...]}``
+    of one nested dict per layer.  Tensors take ``dtype`` (default f32),
+    except the SSM state, which is f32 in both packages."""
     device = resolve_device(device)
-    k, v = np.asarray(tree["layers"]["k"]), np.asarray(tree["layers"]["v"])
 
-    def put(a):
+    def put(name, a):
+        dt = torch.float32 if name == "ssm" else (dtype or torch.float32)
         return torch.tensor(np.asarray(a, np.float32), device=device,
-                            dtype=dtype or torch.float32)
+                            dtype=dt)
 
-    return {"pos": int(tree["pos"]),
-            "layers": [{"k": put(k[i]), "v": put(v[i])}
-                       for i in range(k.shape[0])]}
+    def unstack(sub: Mapping, i: int) -> Dict:
+        return {name: unstack(val, i) if isinstance(val, Mapping)
+                else put(name, np.asarray(val)[i])
+                for name, val in sub.items()}
+
+    def per_layer(sub: Mapping):
+        n = len(next(iter(_flatten(sub).values())))
+        return [unstack(sub, i) for i in range(n)]
+
+    cache = {"pos": int(tree["pos"]), "layers": per_layer(tree["layers"])}
+    if "shared" in tree:
+        cache["shared"] = per_layer(tree["shared"])
+    return cache
 
 
 def cache_to_numpy(cache: Dict) -> Dict:
     """The port's cache -> the reference's layout, as f32 numpy arrays."""
-    def stack(name):
-        return np.stack([lc[name].detach().float().cpu().numpy()
-                         for lc in cache["layers"]])
+    def stack(items):
+        return {name: stack([it[name] for it in items])
+                if isinstance(val, Mapping)
+                else np.stack([it[name].detach().float().cpu().numpy()
+                               for it in items])
+                for name, val in items[0].items()}
 
-    return {"pos": np.int32(cache["pos"]),
-            "layers": {"k": stack("k"), "v": stack("v")}}
+    out = {"pos": np.int32(cache["pos"]), "layers": stack(cache["layers"])}
+    if "shared" in cache:
+        out["shared"] = stack(cache["shared"])
+    return out

@@ -17,7 +17,8 @@
 //
 // Layout: q (B,S,Hq,D), k/v (B,T,Hkv,D) with any strides on B, S and H and
 // D contiguous; out (B,S,Hq,D) contiguous, in q's dtype (f32 or bf16).
-// D is one of 16, 32, 64, 128 (the reduced and the published head dims).
+// D is one of 16, 32, 64, 80, 128 (the reduced and the published head dims;
+// 80 is zamba2-2.7b's shared attention, 2560 / 32).
 // GQA without repeating KV: query head h reads kv head h / (Hq / Hkv),
 // the mapping jnp.repeat(k, G, axis=2) gives in the reference.
 //
@@ -604,11 +605,13 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
     if (D == 16) return launch_f32<16>(p, st);
     if (D == 32) return launch_f32<32>(p, st);
     if (D == 64) return launch_f32<64>(p, st);
+    if (D == 80) return launch_f32<80>(p, st);
     if (D == 128) return launch_f32<128>(p, st);
   } else if (dtype == 1) {
     if (D == 16) return launch_bf16<16>(p, st);
     if (D == 32) return launch_bf16<32>(p, st);
     if (D == 64) return launch_bf16<64>(p, st);
+    if (D == 80) return launch_bf16<80>(p, st);
     if (D == 128) return launch_bf16<128>(p, st);
   }
   return cudaErrorInvalidValue;

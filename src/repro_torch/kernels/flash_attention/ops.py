@@ -21,7 +21,7 @@ from .ref import attention_ref
 
 launches = 0
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu",)
 

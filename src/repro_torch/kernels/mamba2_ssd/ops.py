@@ -1,0 +1,135 @@
+"""Public op: the Mamba2 chunked SSD scan, the Hopper kernel or its plain
+version.
+
+A CPU tensor goes to the plain version (``ref.ssd_ref``).  A CUDA tensor
+launches the kernel in ``csrc/ssd.cu`` or raises: there is no fallback.
+``impl="ref"`` asks for the plain version explicitly, for the tests and
+for comparing the kernel with it on the card.
+
+The op keeps the Pallas kernel's signature, xdt (B,S,H,P), a (B,S,H), B
+and C (B,S,N) -> (y (B,S,H,P), final state (B,H,P,N) f32), plus the
+model's initial state.  xdt, B and C are read in place through their
+strides.
+
+``launches`` counts the kernel launches this process made.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+from .. import _build
+from .ref import ssd_ref
+
+launches = 0
+
+STATE_DIMS = (16, 32, 64, 128)     # N the kernel is built for
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SOURCES = (Path(__file__).resolve().parent / "csrc" / "ssd.cu",)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    lib = _build.load("mamba2_ssd", _SOURCES)
+    fn = lib.mamba2_ssd
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [p] * 7 + [i] * 5 + [ll] * 10 + [i, p]
+    fn.restype = ctypes.c_int
+    lib.mamba2_ssd_error_string.argtypes = [ctypes.c_int]
+    lib.mamba2_ssd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build() -> None:
+    """Build and load the kernel library now (it is otherwise built at the
+    first launch)."""
+    _kernel()
+
+
+def _check(xdt: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
+           Cm: torch.Tensor, init_state: Optional[torch.Tensor]) -> None:
+    """Raise ValueError on anything the kernel does not take."""
+    if xdt.dim() != 4 or a.dim() != 3 or Bm.dim() != 3 or Cm.dim() != 3:
+        raise ValueError(f"need xdt (B,S,H,P), a (B,S,H), B and C (B,S,N), "
+                         f"got {tuple(xdt.shape)} {tuple(a.shape)} "
+                         f"{tuple(Bm.shape)} {tuple(Cm.shape)}")
+    Bb, S, H, P = xdt.shape
+    N = Bm.shape[2]
+    if tuple(a.shape) != (Bb, S, H) or tuple(Bm.shape) != (Bb, S, N) \
+            or Cm.shape != Bm.shape:
+        raise ValueError(f"shapes xdt {tuple(xdt.shape)} a {tuple(a.shape)} "
+                         f"B {tuple(Bm.shape)} C {tuple(Cm.shape)} do not "
+                         "agree")
+    if init_state is not None and tuple(init_state.shape) != (Bb, H, P, N):
+        raise ValueError(f"init_state {tuple(init_state.shape)} != "
+                         f"{(Bb, H, P, N)}")
+    if S < 1 or P < 16 or P % 16 or N not in STATE_DIMS:
+        raise ValueError(f"need S >= 1, P a multiple of 16 and N one of "
+                         f"{STATE_DIMS} (S={S}, P={P}, N={N})")
+    if Bb > 65535 or H > 65535:
+        raise ValueError(f"too many rows ({Bb}) or heads ({H}) for the "
+                         "launch grid")
+    if xdt.dtype not in _DTYPES or Bm.dtype != xdt.dtype \
+            or Cm.dtype != xdt.dtype:
+        raise ValueError(f"dtypes xdt {xdt.dtype} B {Bm.dtype} C "
+                         f"{Cm.dtype}: all one of {list(_DTYPES)}")
+    if a.dtype != torch.float32 or (init_state is not None
+                                    and init_state.dtype != torch.float32):
+        raise ValueError("a and init_state must be float32")
+    if xdt.stride(-1) != 1 or Bm.stride(-1) != 1 or Cm.stride(-1) != 1:
+        raise ValueError("the last dim of xdt, B and C must be contiguous")
+    if any(s % 8 for s in xdt.stride()[:-1] + Bm.stride()[:-1]
+           + Cm.stride()[:-1]) \
+            or any(t.data_ptr() % 16 for t in (xdt, Bm, Cm)):
+        raise ValueError("strides must be multiples of 8 elements and base "
+                         "pointers 16-byte aligned (16-byte row loads)")
+    tensors = (xdt, a, Bm, Cm) + (() if init_state is None
+                                  else (init_state,))
+    if xdt.device.type != "cuda" or any(t.device != xdt.device
+                                        for t in tensors):
+        raise ValueError(f"ssd kernel needs every tensor on one CUDA "
+                         f"device, got {[str(t.device) for t in tensors]}")
+
+
+def _launch(xdt, a, Bm, Cm, init_state):
+    global launches
+    _check(xdt, a, Bm, Cm, init_state)
+    Bb, S, H, P = xdt.shape
+    N = Bm.shape[2]
+    init = None if init_state is None else init_state.contiguous()
+    y = torch.empty((Bb, S, H, P), dtype=xdt.dtype, device=xdt.device)
+    state = torch.empty((Bb, H, P, N), dtype=torch.float32,
+                        device=xdt.device)
+    lib = _kernel()
+    with torch.cuda.device(xdt.device):
+        stream = torch.cuda.current_stream(xdt.device).cuda_stream
+        err = lib.mamba2_ssd(
+            xdt.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            None if init is None else init.data_ptr(), y.data_ptr(),
+            state.data_ptr(), Bb, S, H, P, N, *xdt.stride()[:3],
+            *a.stride(), *Bm.stride()[:2], *Cm.stride()[:2],
+            _DTYPES[xdt.dtype], stream)
+    if err:
+        raise RuntimeError("mamba2_ssd launch failed: "
+                           f"{lib.mamba2_ssd_error_string(err).decode()}")
+    launches += 1
+    return y, state
+
+
+def ssd(xdt: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
+        Cm: torch.Tensor, init_state: Optional[torch.Tensor] = None, *,
+        impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+    """xdt: (B,S,H,P) dt-premultiplied inputs; a: (B,S,H) f32 log decays;
+    Bm, Cm: (B,S,N); init_state: (B,H,P,N) f32 or None.  Returns (y
+    (B,S,H,P) in xdt's dtype, final_state (B,H,P,N) f32).
+    impl: auto | ref."""
+    if impl == "ref" or (impl == "auto" and xdt.device.type == "cpu"):
+        return ssd_ref(xdt, a, Bm, Cm, init_state)
+    if impl != "auto":
+        raise ValueError(f"unknown impl {impl!r}; expected auto | ref")
+    return _launch(xdt, a, Bm, Cm, init_state)

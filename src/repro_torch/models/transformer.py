@@ -1,18 +1,24 @@
-"""Model assembly for the ``attn`` and ``moe`` block kinds: embeddings ->
-layer stack -> LM head.  The port of ``repro.models.transformer`` for GQA
-decoders with a dense SwiGLU MLP or a mixture of experts.
+"""Model assembly: embeddings -> layer stack -> LM head.  The port of
+``repro.models.transformer`` for three block kinds: ``attn`` (GQA with a
+dense SwiGLU MLP), ``moe`` (GQA with a mixture of experts) and ``mamba2``
+(the SSD block), with zamba2's shared attention block (one parameter set,
+attention + dense MLP) applied after every ``shared_attn_every`` layers.
 
 Two serving modes share the block code, as in the reference:
-  prefill : full prompt, caches written (ring buffers);
+  prefill : full prompt, caches written (ring buffers / SSM states);
   decode  : one token against the caches (the serve step);
 plus ``forward_logits``, the full-sequence forward without a cache that
 the teacher-forcing test holds prefill and decode against.
 
 Parameters live in a ``Transformer`` module whose parameter names follow
 the reference's pytree (``layers.<i>.attn.wq`` for the reference's
-``params["layers"]["attn"]["wq"][i]``, ``layers.<i>.moe.wi_gate`` for
-``params["layers"]["moe"]["wi_gate"][i]``); caches are
-``{"pos": int, "layers": [{"k", "v"}, ...]}`` and are updated in place.
+``params["layers"]["attn"]["wq"][i]``, ``layers.<i>.mamba.w_z`` for
+``params["layers"]["mamba"]["w_z"][i]``, ``shared_attn.attn.wq`` for
+``params["shared_attn"]["attn"]["wq"]``).  Caches are ``{"pos": int,
+"layers": [...], "shared": [...]}``: a layer holds ``{"k", "v"}`` ring
+buffers (attention kinds) or ``{"ssm", "conv": {"x", "B", "C"}}``
+(mamba2), ``shared`` one ring buffer per invocation of the shared block.
+They are updated in place.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from torch import nn
 from .. import resolve_device
 from ..config import ModelConfig
 from . import layers as L
+from . import mamba2 as M
 from . import moe as MOE
 
 
@@ -36,27 +43,33 @@ def _torch_dtype(name: str) -> torch.dtype:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if (set(cfg.block_pattern) not in ({"attn"}, {"moe"})
-            or cfg.shared_attn_every or cfg.n_enc_layers
-            or cfg.frontend != "none"):
+    if (set(cfg.block_pattern) not in ({"attn"}, {"moe"}, {"mamba2"})
+            or cfg.n_enc_layers or cfg.frontend != "none"):
         raise NotImplementedError(
             f"{cfg.name}: repro_torch serves attention decoders with a dense "
-            "or MoE MLP only so far (Mamba2, RWKV6, encoder-decoder and "
-            "frontends are later slices)")
+            "or MoE MLP and Mamba2 stacks only so far (RWKV6, "
+            "encoder-decoder and frontends are later slices)")
 
 
 class Block(nn.Module):
-    """One layer: ln1, attn, ln2, and ``mlp`` (``attn`` kind) or ``moe``
-    (``moe`` kind)."""
+    """One layer of ``kind``: ln1 and ``mamba`` (``mamba2``), or ln1,
+    attn, ln2 and ``mlp`` (``attn``, also the shared block) or ``moe``
+    (``moe``)."""
 
-    def __init__(self, cfg: ModelConfig, *, device, dtype) -> None:
+    def __init__(self, cfg: ModelConfig, kind: str, *, device,
+                 dtype) -> None:
         super().__init__()
         self.ln1 = L._param((cfg.d_model,), device, dtype)
+        if kind == "mamba2":
+            self.mamba = M.Mamba2(cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                                  cfg.ssm_heads, cfg.ssm_conv, device=device,
+                                  dtype=dtype)
+            return
         self.attn = L.Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                 cfg.head_dim, cfg.qk_norm, device=device,
                                 dtype=dtype)
         self.ln2 = L._param((cfg.d_model,), device, dtype)
-        if cfg.block_pattern[0] == "moe":
+        if kind == "moe":
             self.moe = MOE.MoE(cfg.d_model, cfg.moe_d_ff, cfg.n_experts,
                                device=device, dtype=dtype)
         else:
@@ -79,8 +92,10 @@ class Transformer(nn.Module):
         self.lm_head = L._param((cfg.d_model, cfg.vocab_padded), device,
                                 dtype)
         self.layers = nn.ModuleList(
-            Block(cfg, device=device, dtype=dtype)
+            Block(cfg, cfg.block_pattern[0], device=device, dtype=dtype)
             for _ in range(cfg.n_layers))
+        if cfg.shared_attn_every:
+            self.shared_attn = Block(cfg, "attn", device=device, dtype=dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -92,16 +107,23 @@ class Transformer(nn.Module):
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> Transformer:
     """The reference's shapes and laws (``init_params``, ``dense_init``,
-    ``embed_init``, ``moe_params``, norms at one; the MoE router in f32),
-    drawn from ``generator``, which must live on ``device``.  torch and
-    jax.random give different numbers from one seed: to compare with the
-    reference, carry its weights over with ``convert.params_from_numpy``."""
+    ``embed_init``, ``moe_params``, ``mamba2_params``, norms at one; the
+    MoE router and Mamba2's A_log, dt_bias and D in f32), drawn from
+    ``generator``, which must live on ``device``.  torch and jax.random
+    give different numbers from one seed: to compare with the reference,
+    carry its weights over with ``convert.params_from_numpy``."""
     params = Transformer(cfg, device)
     L.embed_init_(params.embed, generator)
     params.final_norm.fill_(1.0)
     L.dense_init_(params.lm_head, generator)
-    for blk in params.layers:
+    blocks = list(params.layers)
+    if cfg.shared_attn_every:
+        blocks.append(params.shared_attn)
+    for blk in blocks:
         blk.ln1.fill_(1.0)
+        if hasattr(blk, "mamba"):
+            M.mamba2_init_(blk.mamba, generator)
+            continue
         blk.ln2.fill_(1.0)
         for w in (blk.attn.wq, blk.attn.wk, blk.attn.wv, blk.attn.wo):
             L.dense_init_(w, generator)
@@ -122,17 +144,38 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None) -> Dict:
-    """Zeroed ring-buffer caches: ``max_len`` slots, or the sliding window
-    when that is shorter."""
+    """Zeroed caches.  Attention: ring buffers of ``max_len`` slots, or the
+    sliding window when that is shorter.  Mamba2: the f32 SSM state and the
+    convolutions' last K-1 inputs in the model's dtype."""
     _check_supported(cfg)
     device = resolve_device(device)
     dtype = _torch_dtype(cfg.dtype)
-    Tc = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
-    shape = (B, Tc, cfg.n_kv_heads, cfg.head_dim)
-    return {"pos": 0,
-            "layers": [{"k": torch.zeros(shape, dtype=dtype, device=device),
-                        "v": torch.zeros(shape, dtype=dtype, device=device)}
-                       for _ in range(cfg.n_layers)]}
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    def attn_cache():
+        Tc = (min(max_len, cfg.sliding_window) if cfg.sliding_window
+              else max_len)
+        shape = (B, Tc, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": zeros(*shape), "v": zeros(*shape)}
+
+    def mamba_cache():
+        kconv = cfg.ssm_conv - 1
+        return {"ssm": zeros(B, cfg.ssm_heads, cfg.ssm_head_dim,
+                             cfg.ssm_state, dt=torch.float32),
+                "conv": {"x": zeros(B, kconv, cfg.d_inner),
+                         "B": zeros(B, kconv, cfg.ssm_state),
+                         "C": zeros(B, kconv, cfg.ssm_state)}}
+
+    layer_cache = (mamba_cache if cfg.block_pattern[0] == "mamba2"
+                   else attn_cache)
+    cache = {"pos": 0,
+             "layers": [layer_cache() for _ in range(cfg.n_layers)]}
+    if cfg.shared_attn_every:
+        cache["shared"] = [attn_cache() for _ in
+                           range(cfg.n_layers // cfg.shared_attn_every)]
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -164,19 +207,52 @@ def _apply_attn_block(cfg: ModelConfig, p: Block, x, positions, cache,
     return x + L.mlp(p.mlp, h2), cache, {}
 
 
+def _apply_mamba_block(cfg: ModelConfig, p: Block, x, cache: Optional[Dict],
+                       *, decode: bool, impl: str = "auto"):
+    """ln1 + Mamba2 block.  Returns x; the cache's states are replaced
+    in place."""
+    h = L.rms_norm(x, p.ln1, cfg.norm_eps)
+    kw = dict(d_inner=cfg.d_inner, n_state=cfg.ssm_state,
+              n_heads=cfg.ssm_heads, head_dim=cfg.ssm_head_dim,
+              eps=cfg.norm_eps)
+    if decode:
+        out, cache["ssm"], cache["conv"] = M.mamba2_decode_step(
+            p.mamba, h, cache["ssm"], cache["conv"], **kw)
+    elif cache is not None:  # prefill: thread states through (f32 state)
+        out, (cache["ssm"], cache["conv"]) = M.mamba2_forward(
+            p.mamba, h, ssm_state=cache["ssm"], conv_state=cache["conv"],
+            return_state=True, impl=impl, **kw)
+    else:
+        out = M.mamba2_forward(p.mamba, h, impl=impl, **kw)
+    return x + out
+
+
 def _stack(cfg: ModelConfig, params: Transformer, x, positions,
            caches: Optional[Dict], cache_pos: int, *, decode: bool,
            impl: str = "auto", moe_offset=None):
-    """Run the decoder stack (the reference's layer scan, as a loop).
-    Returns (x, caches, aux), aux averaged over layers."""
+    """Run the decoder stack (the reference's layer scan, as a loop), with
+    the shared block after layer i when (i + 1) % shared_attn_every == 0,
+    on shared cache i // shared_attn_every.  Returns (x, caches, aux), aux
+    averaged over layers."""
+    k = cfg.shared_attn_every
     auxes = []
     for i, lp in enumerate(params.layers):
         lcache = caches["layers"][i] if caches is not None else None
-        x, _, aux = _apply_attn_block(cfg, lp, x, positions, lcache,
-                                      cache_pos, decode=decode, impl=impl,
-                                      moe_offset=moe_offset)
-        auxes.append(aux)
-    aux = {k: torch.stack([a[k] for a in auxes]).mean() for k in auxes[0]}
+        if hasattr(lp, "mamba"):
+            x = _apply_mamba_block(cfg, lp, x, lcache, decode=decode,
+                                   impl=impl)
+        else:
+            x, _, aux = _apply_attn_block(cfg, lp, x, positions, lcache,
+                                          cache_pos, decode=decode,
+                                          impl=impl, moe_offset=moe_offset)
+            auxes.append(aux)
+        if k and (i + 1) % k == 0:
+            scache = caches["shared"][i // k] if caches is not None else None
+            x, _, _ = _apply_attn_block(cfg, params.shared_attn, x,
+                                        positions, scache, cache_pos,
+                                        decode=decode, impl=impl)
+    aux = ({key: torch.stack([a[key] for a in auxes]).mean()
+            for key in auxes[0]} if auxes else {})
     return x, caches, aux
 
 
@@ -203,8 +279,8 @@ def prefill(cfg: ModelConfig, params: Transformer, batch: Dict,
             max_len: int, impl: str = "auto"):
     """Process the prompt ``batch["tokens"]`` (B, S); returns (last-token
     logits (B, 1, V), populated cache).  ``impl="ref"`` sends prompt
-    attention and the expert products to their plain versions even on the
-    card (for comparing)."""
+    attention, the expert products and the SSD scan to their plain
+    versions even on the card (for comparing)."""
     tokens = batch["tokens"]
     x = params.embed[tokens]
     B, S = tokens.shape

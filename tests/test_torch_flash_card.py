@@ -25,7 +25,7 @@ def _card():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("D", [16, 64, 80, 128])
 def test_cuda_kernel_matches_plain_on_card(dtype, D):
     gen = _card()
     dt = getattr(torch, dtype)

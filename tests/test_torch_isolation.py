@@ -57,12 +57,17 @@ def test_port_and_chip_smoke_import_with_jax_and_repro_blocked():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
-    assert len(names) >= 25                     # every module was imported
+    assert len(names) >= 30                     # every module was imported
     for name in ("repro_torch.models.moe", "repro_torch.kernels.moe_gmm",
                  "repro_torch.kernels.moe_gmm.ops",
                  "repro_torch.kernels.moe_gmm.ref",
                  "repro_torch.configs.granite_moe_1b_a400m",
-                 "repro_torch.configs.mixtral_8x7b"):
+                 "repro_torch.configs.mixtral_8x7b",
+                 "repro_torch.models.mamba2",
+                 "repro_torch.kernels.mamba2_ssd",
+                 "repro_torch.kernels.mamba2_ssd.ops",
+                 "repro_torch.kernels.mamba2_ssd.ref",
+                 "repro_torch.configs.zamba2_2_7b"):
         assert name in names, name
 
 
@@ -80,7 +85,7 @@ def test_entry_points_without_device_raise_when_cuda_is_absent():
     from repro_torch.serving.engine import TorchServeEngine
 
     assert resolve_device("cpu") == torch.device("cpu")
-    for arch in ("qwen3-0.6b", "granite-moe-1b-a400m"):
+    for arch in ("qwen3-0.6b", "granite-moe-1b-a400m", "zamba2-2.7b"):
         cfg = get_smoke_config(arch)
         for call in (lambda: resolve_device(),
                      lambda: init_cache(cfg, 1, 8),

@@ -1,0 +1,87 @@
+"""The port's CUDA SSD scan against its plain PyTorch version, on the card.
+These tests need a CUDA device and skip without one; they import no JAX,
+so they run on the GPU machine:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_ssd_card.py
+
+Tolerances: f32 1e-3 atol = rtol (tests/test_kernels.py; the kernel's
+chunk of 64 against the plain version's 256 moves y by about 4e-5); bf16
+2e-2 normalised by max |want|, one rounding of y to bf16 in both.
+"""
+
+import pytest
+import torch
+
+from repro_torch.kernels.mamba2_ssd import ops
+
+TOL = {"float32": 1e-3, "bfloat16": 2e-2}
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _inputs(gen, B, S, H, P, N, dtype):
+    def rnd(shape, scale):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    a = -rnd((B, S, H), 0.1).abs()
+    return (rnd((B, S, H, P), 0.5).to(dtype), a, rnd((B, S, N), 0.5).to(dtype),
+            rnd((B, S, N), 0.5).to(dtype))
+
+
+def _assert_close(got, want, dtype):
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+    else:
+        scale = want.float().abs().max()
+        torch.testing.assert_close(got.float() / scale, want.float() / scale,
+                                   atol=TOL[dtype], rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,P,N", [
+    (2, 256, 4, 64, 64), (1, 512, 2, 64, 32), (2, 128, 8, 32, 64),
+    (1, 1000, 2, 64, 64), (3, 12, 4, 16, 16), (1, 200, 3, 48, 128)])
+@pytest.mark.parametrize("with_init", [False, True])
+def test_cuda_kernel_matches_plain_on_card(dtype, B, S, H, P, N, with_init):
+    """The reference sweep, ragged S (1000, 12, 200), P = 16 and 48 (the
+    16-column tile) and N = 16 and 128, from a zero and a given state."""
+    gen = _card()
+    dt = getattr(torch, dtype)
+    xdt, a, Bm, Cm = _inputs(gen, B, S, H, P, N, dt)
+    init = (torch.randn((B, H, P, N), generator=gen, device="cuda")
+            if with_init else None)
+    before = ops.launches
+    y, state = ops.ssd(xdt, a, Bm, Cm, init)
+    torch.cuda.synchronize()
+    assert ops.launches == before + 1
+    want_y, want_state = ops.ssd(xdt, a, Bm, Cm, init, impl="ref")
+    assert ops.launches == before + 1       # the plain version never counts
+    assert y.shape == xdt.shape and y.dtype == dt
+    assert state.shape == (B, H, P, N) and state.dtype == torch.float32
+    _assert_close(y, want_y, dtype)
+    _assert_close(state, want_state, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_reads_strided_views(dtype):
+    """xdt, B and C as slices of one wider projection (the layout a fused
+    in-projection gives), read in place."""
+    gen = _card()
+    dt = getattr(torch, dtype)
+    B, S, H, P, N = 2, 300, 4, 32, 64
+    proj = torch.randn((B, S, H * P + 2 * N + 8), generator=gen,
+                       device="cuda").to(dt) * 0.5
+    xdt = proj[..., 8:8 + H * P].view(B, S, H, P)
+    Bm, Cm = proj[..., 8 + H * P:8 + H * P + N], proj[..., 8 + H * P + N:]
+    a = -(torch.randn((B, S, H), generator=gen, device="cuda") * 0.1).abs()
+    assert not xdt.is_contiguous() and not Bm.is_contiguous()
+    y, state = ops.ssd(xdt, a, Bm, Cm)
+    want_y, want_state = ops.ssd(xdt, a, Bm, Cm, impl="ref")
+    _assert_close(y, want_y, dtype)
+    _assert_close(state, want_state, dtype)
