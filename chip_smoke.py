@@ -3,7 +3,7 @@
 
 Run from the root of a checkout:  ``python3 chip_smoke.py``
 
-It builds the port's three CUDA kernel libraries from the checkout's
+It builds the port's four CUDA kernel libraries from the checkout's
 sources (one ``nvcc`` each, started together) and then:
 
 1. prints the card (``nvidia-smi`` name and power limit) and the build time;
@@ -11,7 +11,7 @@ sources (one ``nvcc`` each, started together) and then:
    the card: the reference kernel tests' sweep in f32 and bf16, causal,
    windowed and non-causal, plus GQA, ragged lengths, head dim 80,
    ring-buffer positions with unwritten (-1) slots, strided views and the
-   three served models' prefill shapes;
+   served attention models' prefill shapes;
 3. times the kernel, the plain version and PyTorch's
    ``scaled_dot_product_attention`` (a yardstick only; the port never
    calls it) at qwen3's and zamba2's prefill shapes, beside the card's
@@ -25,21 +25,27 @@ sources (one ``nvcc`` each, started together) and then:
    bf16: the reference sweep, ragged lengths, an initial state, a strided
    view and zamba2's prefill shape; then times it and the plain version
    there, beside the card's bound (no single PyTorch call computes it);
-6. serves full-width qwen3-0.6b (28 layers), granite-moe-1b-a400m (24
-   layers, 32 experts top-8) and zamba2-2.7b (54 Mamba2 layers and a
-   shared attention block after every 6th), one after the other, random
-   weights from seed 0, under GCR admission: 8 streams on 3 slots, prompt
-   1024, 16 generated tokens each.  Each run starts with the launch
-   counts at 0 and checks them after (flash once an attention block a
-   wave; for granite also the expert products, three a layer a forward
-   pass; for zamba2 the scan once a layer a wave), the admission counts,
+6. holds the RWKV6 WKV kernel against its plain version in f32 and bf16:
+   the reference sweep, a nonzero bonus u, ragged lengths, an initial
+   state, decays up to the rate cap, strided views and rwkv6-7b's prefill
+   shape; then times it and the plain version there, beside the card's
+   bound (no single PyTorch call computes the recurrence);
+7. serves full-width qwen3-0.6b (28 layers), granite-moe-1b-a400m (24
+   layers, 32 experts top-8), zamba2-2.7b (54 Mamba2 layers and a shared
+   attention block after every 6th) and rwkv6-7b (32 RWKV6 layers,
+   attention-free), one after the other, random weights from seed 0,
+   under GCR admission: 8 streams on 3 slots, prompt 1024, 16 generated
+   tokens each.  Each run starts with the launch counts at 0 and checks
+   them after (flash once an attention block a wave; for granite also
+   the expert products, three a layer a forward pass; for zamba2 the
+   scan, for rwkv6 the WKV, once a layer a wave), the admission counts,
    finite logits, and the first wave's prefill logits against the same
    wave on the plain versions (and prints both runs' distance from that
-   wave in f32 on the plain versions); for granite it also counts the tokens
-   whose top-8 experts agree between the two.  Each run then profiles
-   one prefill wave and a few decode steps (device busy time, idle share,
-   the heaviest kernels) and frees its model;
-7. prints one JSON line describing every kernel of the path, then, as
+   wave in f32 on the plain versions); for granite it also counts the
+   tokens whose top-8 experts agree between the two.  Each run then
+   profiles one prefill wave and a few decode steps (device busy time,
+   idle share, the heaviest kernels) and frees its model;
+8. prints one JSON line describing every kernel of the path, then, as
    the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero.  Without CUDA, or outside a checkout, it
@@ -61,8 +67,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# Published dense peaks of one H100 SXM (NVIDIA data sheet), for the bound.
-PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+# Published dense peaks of one H100 SXM (NVIDIA data sheet), for the bound;
+# f64 on the tensor cores, for the wkv kernel's floor (it sums in f64)
+PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12,
+              "torch.float64": 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 L2_BYTES = 50e6
 
@@ -93,8 +101,19 @@ SSD_SWEEP = [(2, 256, 4, 64, 64), (1, 512, 2, 64, 32), (2, 128, 8, 32, 64)]
 # zamba2-2.7b's prefill scan when serving 3 slots: H = 5120 / 64 heads
 SSD_PREFILL = (3, 1024, 80, 64, 64)
 SSD_CHUNK = 256     # the reference model's chunk, for the bound's count
+
+# WKV: atol = rtol (tests/test_kernels.py), y and the f32 state against
+# the plain version's f32 result on the same inputs; a bf16 y adds its one
+# rounding, at most half a bf16 ulp (2^-8 relative).  Both sum in f64, so
+# a bf16 y should equal the plain version's bit for bit (counted).
+WKV_TOL = 5e-3
+# (B, S, H, P) of the reference kernel tests' wkv sweep
+WKV_SWEEP = [(2, 64, 2, 32), (1, 128, 4, 64), (2, 32, 2, 16)]
+# rwkv6-7b's prefill WKV when serving 3 slots: H = 4096 / 64 heads
+WKV_PREFILL = (3, 1024, 64, 64)
+WKV_CHUNK = 16      # the reference model's chunk, for the bound's count
 # the port's CUDA kernels, as the profiler names them
-PORT_KERNELS = ("::flash_fwd_", "::gmm_", "::ssd_")
+PORT_KERNELS = ("::flash_fwd_", "::gmm_", "::ssd_", "::wkv_")
 
 # the serving runs: one GCR engine, more streams than slots
 N_STREAMS, N_SLOTS, PROMPT_LEN, GEN_LEN = 8, 3, 1024, 16
@@ -111,14 +130,19 @@ SERVED = [
         n_layers=54, d_model=2560, n_heads=32, n_kv_heads=32, head_dim=80,
         vocab_size=32000, block_pattern=("mamba2",), d_inner=5120,
         ssm_heads=80, ssm_head_dim=64, ssm_state=64, shared_attn_every=6)),
+    ("rwkv6-7b", dict(
+        n_layers=32, d_model=4096, d_ff=14336, vocab_size=65536,
+        block_pattern=("rwkv6",), rwkv_head_dim=64, rwkv_heads=64)),
 ]
 # prefill logits, kernels vs plain versions, both in bf16: flash rounds P
 # and the output to bf16 in other places than plain attention, the gmm
 # kernel sums in another order before its one rounding, the ssd kernel
-# rounds its masked scores and scans in chunks of another size, and 24 to
-# 63 blocks carry those one-ulp differences to the logits; in the MoE a
-# routing near-tie may also send a token to another expert.  Allowed: 5%
-# of the largest logit (about 13 bf16 ulps at that scale).
+# splits its f32 operands into bf16 pairs and scans in chunks of another
+# size, and 24 to 63 blocks carry those one-ulp differences to the
+# logits; in the MoE a routing near-tie may also send a token to another
+# expert.  (The wkv kernel and its plain version both sum in f64 and
+# agree bit for bit.)  Allowed: 5% of the largest logit (about 13 bf16
+# ulps at that scale).
 LOGIT_RTOL = 0.05
 
 
@@ -534,10 +558,149 @@ def ssd_timing_phase(torch, sd, gen):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def wkv_kernel_phase(torch, wk, gen):
+    """Every case: kernel vs plain on the same inputs (y and the final
+    state), the reference tests' laws for the inputs.  Returns the max abs
+    error of y at rwkv6-7b's prefill shape (bf16)."""
+    def rnd(shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def inputs(B, S, H, P, dtype, u_scale=0.1, rate_shift=-2.0):
+        r, k, v = (rnd((B, S, H, P)).to(dtype) for _ in range(3))
+        # w = exp(-rate), rate log-normal, capped as the model caps it
+        rate = torch.exp(rnd((B, S, H, P)) * 0.5 + rate_shift)
+        w = torch.exp(-torch.clamp(rate, max=5.0))
+        return r, k, v, w, rnd((H, P)) * u_scale
+
+    def compare(name, r, k, v, w, u, init=None):
+        y, state = wk.wkv(r, k, v, w, u, init)
+        # the plain version on the same values, y kept in f32 (two f32
+        # sums that differ in the last bit can round to neighbouring bf16
+        # values, up to 2^-7 apart)
+        want_y, want_state = wk.wkv(r.float(), k.float(), v.float(), w, u,
+                                    init, impl="ref")
+        check(y.shape == want_y.shape and y.dtype == r.dtype
+              and state.shape == want_state.shape
+              and state.dtype == torch.float32,
+              f"wkv kernel gave y {tuple(y.shape)} {y.dtype}, state "
+              f"{tuple(state.shape)} {state.dtype}: {name}")
+        errs, ok = [], True
+        for got, want in ((y, want_y), (state, want_state)):
+            got, want = got.float(), want.float()
+            errs.append((got - want).abs().max().item())
+            ok = ok and torch.allclose(got, want, atol=WKV_TOL, rtol=WKV_TOL)
+        same = (y == want_y.to(y.dtype)).float().mean().item()
+        print(f"  {name:<52} max_abs_err y={errs[0]:.3e} state="
+              f"{errs[1]:.3e} (atol=rtol={WKV_TOL:g}); share of y equal "
+              f"to the plain version's: {same:.6f} "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"wkv kernel disagrees with plain: {name}")
+        return errs[0]
+
+    print("kernel phase: rwkv6 wkv vs wkv_ref on the card")
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        short = str(dtype).replace("torch.", "")
+        for (B, S, H, P) in WKV_SWEEP:
+            compare(f"sweep B{B} S{S} H{H} P{P} {short}",
+                    *inputs(B, S, H, P, dtype))
+        compare(f"bonus u N(0, .25) B2 S128 H4 P64 {short}",
+                *inputs(2, 128, 4, 64, dtype, 0.5))
+        # ragged lengths: the model's S is the prompt's, not a chunk multiple
+        for S in (1000, 12):
+            compare(f"ragged B2 S{S} H4 P64 {short}",
+                    *inputs(2, S, 4, 64, dtype, 0.5))
+        # the prefill of a cache that already holds a state, P 16, 64, 128
+        for P in (16, 64, 128):
+            compare(f"init_state B2 S300 H4 P{P} {short}",
+                    *inputs(2, 300, 4, P, dtype, 0.5),
+                    rnd((2, 4, P, P)))
+        # decay rates around 1.6, many at the cap of 5: k~ reaches e^80|k|
+        compare(f"strong decays B2 S256 H4 P64 {short}",
+                *inputs(2, 256, 4, 64, dtype, 0.5, rate_shift=0.5))
+        # r, k, v as views of one fused projection, w of a wider tensor
+        B, S, H, P = 2, 300, 4, 32
+        proj = rnd((B, S, 3 * H * P + 8)).to(dtype)
+        r, k, v = (proj[..., 8 + i * H * P:8 + (i + 1) * H * P].view(
+            B, S, H, P) for i in range(3))
+        w = torch.exp(-torch.exp(rnd((B, S, H, P + 16)) * 0.5 - 2))[..., 16:]
+        compare(f"strided views of one projection {short}", r, k, v,
+                w, rnd((H, P)) * 0.5, rnd((B, H, P, P)))
+        # the model passes the cache's state: an initial state here too
+        B, S, H, P = WKV_PREFILL
+        e = compare(f"rwkv6-7b prefill B{B} S{S} H{H} P{P} {short}",
+                    *inputs(B, S, H, P, dtype, 0.5), rnd((B, H, P, P)))
+        if dtype == torch.bfloat16:
+            err = e
+    return err
+
+
+def wkv_timing_phase(torch, wk, gen):
+    """The WKV at rwkv6-7b's prefill shape, bf16 r, k, v, f32 w and an
+    initial state (the model passes the cache's): kernel and plain version
+    beside the bound.  Times are device time (``device_ms``); the kernel's
+    CUDA-event time per call, host launch included, is printed beside it.
+    Each call takes the next of several input sets that together exceed
+    the L2 four times, as each layer of a prefill meets its inputs cold."""
+    B, S, H, P = WKV_PREFILL
+    n = B * S * H * P
+    # each input read once, each output written once: r, k, v and y bf16,
+    # w f32, u f32, the initial and the final state f32
+    nbytes = 3 * n * 2 + n * 4 + H * P * 4 + n * 2 + 2 * B * H * P * P * 4
+    sets = []
+    for _ in range(max(2, -(-4 * int(L2_BYTES) // nbytes))):
+        def rnd(shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+        sets.append([rnd((B, S, H, P)).to(torch.bfloat16) for _ in range(3)]
+                    + [torch.exp(-torch.exp(rnd((B, S, H, P)) * 0.5 - 2)),
+                       rnd((H, P)) * 0.5, rnd((B, H, P, P))])
+
+    def rotating(impl, sets=sets):
+        state = {"i": 0}
+
+        def fn():
+            state["i"] = (state["i"] + 1) % len(sets)
+            return wk.wkv(*sets[state["i"]], impl=impl)
+        return fn
+
+    ms = device_ms(torch, rotating("auto"))
+    event_ms = time_ms(torch, rotating("auto"), iters=20)
+    plain_ms = device_ms(torch, rotating("ref"), 5)
+    # the first batch row alone: one block an SM instead of three.  A
+    # kernel bound by its throughput takes a third of the time; one bound
+    # by the latency of its chain of chunks about as long
+    row0 = [[t[:1] if t.dim() == 4 else t for t in s] for s in sets]
+    ms_row0 = device_ms(torch, rotating("auto", row0))
+    # operations of the reference algorithm at its chunk, 2 FLOP per
+    # multiply-add: the scores r~ k~^T and their product with v (T x T x P
+    # each), r~ state and the state update (T x P x P each), a chunk
+    T = WKV_CHUNK
+    flops = 2 * B * H * -(-S // T) * (2 * T * T * P + 2 * T * P * P)
+    t_ops = flops / PEAK_FLOPS["torch.bfloat16"] * 1e3
+    t_f64 = flops / PEAK_FLOPS["torch.float64"] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"wkv timing at rwkv6-7b's prefill shape B{B} S{S} H{H} P{P} "
+          f"bfloat16 r, k, v, f32 w, an initial state, cold L2, {len(sets)} "
+          "input sets (device time, mean of 20 calls):")
+    print(f"  wkv kernel {ms:.4f} ms (events, launch included: "
+          f"{event_ms:.4f} ms) | plain {plain_ms:.4f} ms | no library call "
+          f"| bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, "
+          f"{nbytes / 1e6:.2f} MB) | the same FLOP at the f64 tensor-core "
+          f"rate {t_f64:.4f} ms")
+    print(f"  B1 alone ({H * P // 32} blocks, one an SM): {ms_row0:.4f} ms, "
+          f"{ms_row0 / ms:.3f} of B{B}'s time")
+    del sets, row0
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def serve_phase(torch, np, kernels, arch, expect):
     """Serve ``arch`` at full width and check it.  ``kernels`` maps each
     kernel's name to its ops module.  Returns the launches of each kernel
-    during the served run alone: {"flash": n, "gmm": n, "ssd": n}."""
+    during the served run alone: {"flash": n, "gmm": n, "ssd": n,
+    "wkv": n}."""
     from repro_torch.configs import get_config
     from repro_torch.models import Transformer, init_params, prefill
     from repro_torch.models import moe as moe_mod
@@ -629,13 +792,15 @@ def serve_phase(torch, np, kernels, arch, expect):
         moe_mod.router_topk = router_topk
 
     waves, steps = len(prefill_ms), len(decode_ms)
-    # prompt attention: every layer of an attention kind, else the shared
-    # block's invocations
-    n_attn = (cfg.n_layers // cfg.shared_attn_every if kind == "mamba2"
-              else cfg.n_layers)
+    # prompt attention: every layer of an attention kind, plus the shared
+    # block's invocations; none in an attention-free stack
+    n_attn = cfg.n_layers if kind in ("attn", "moe") else 0
+    if cfg.shared_attn_every:
+        n_attn += cfg.n_layers // cfg.shared_attn_every
     want = {"flash": n_attn * waves,
             "gmm": 3 * cfg.n_layers * (waves + steps) if is_moe else 0,
-            "ssd": cfg.n_layers * waves if kind == "mamba2" else 0}
+            "ssd": cfg.n_layers * waves if kind == "mamba2" else 0,
+            "wkv": cfg.n_layers * waves if kind == "rwkv6" else 0}
     adm = eng.admission
     print(f"  waves={waves} decode steps={steps} launches={launches} "
           f"(want {want}) stat_fast={adm.stat_fast} "
@@ -761,6 +926,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.mamba2_ssd import ops as sd
     from repro_torch.kernels.moe_gmm import ops as gm
+    from repro_torch.kernels.rwkv6_wkv import ops as wk
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -769,7 +935,8 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     print(f"device: {name} x{torch.cuda.device_count()} torch "
           f"{torch.__version__} cuda {torch.version.cuda}")
-    libs = {"flash_fwd": fa, "moe_gmm": gm, "mamba2_ssd": sd}
+    libs = {"flash_fwd": fa, "moe_gmm": gm, "mamba2_ssd": sd,
+            "rwkv6_wkv": wk}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source
         for job in [pool.submit(mod.build) for mod in libs.values()]:
@@ -791,7 +958,9 @@ def main() -> int:
     gmm_times = gmm_timing_phase(torch, gm, gen)
     ssd_err = ssd_kernel_phase(torch, sd, gen)
     ssd_times = ssd_timing_phase(torch, sd, gen)
-    kernels = {"flash": fa, "gmm": gm, "ssd": sd}
+    wkv_err = wkv_kernel_phase(torch, wk, gen)
+    wkv_times = wkv_timing_phase(torch, wk, gen)
+    kernels = {"flash": fa, "gmm": gm, "ssd": sd, "wkv": wk}
     launches = dict.fromkeys(kernels, 0)
     for arch, expect in SERVED:
         free_model(torch)
@@ -799,7 +968,7 @@ def main() -> int:
                                      expect).items():
             launches[kernel] += n
     free_model(torch)
-    print(f"launches over the three serve runs: {launches}")
+    print(f"launches over the {len(SERVED)} serve runs: {launches}")
 
     print(card_line())
     print(json.dumps({"kernels": [{
@@ -826,6 +995,14 @@ def main() -> int:
         "launches": launches["ssd"],
         "max_abs_err": ssd_err,
         **ssd_times,
+    }, {
+        "name": "rwkv6_wkv",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/rwkv6_wkv/csrc/wkv.cu",
+        "replaces": "src/repro/kernels/rwkv6_wkv/kernel.py:80",
+        "launches": launches["wkv"],
+        "max_abs_err": wkv_err,
+        **wkv_times,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

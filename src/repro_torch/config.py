@@ -2,8 +2,9 @@
 
 Fields and defaults are copied field for field, so a configuration file
 reads the same in both packages; only the derived values the port uses
-(``head_dim``, ``vocab_padded``, ``d_inner``, ``ssm_heads``) are carried
-over.  Training, mesh and hardware configs belong to later slices.
+(``head_dim``, ``vocab_padded``, ``d_inner``, ``ssm_heads``,
+``rwkv_heads``) are carried over.  Training, mesh and hardware configs
+belong to later slices.
 """
 
 from __future__ import annotations
@@ -84,3 +85,7 @@ class ModelConfig:
     @property
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim
+
+    @property
+    def rwkv_heads(self) -> int:
+        return self.d_model // self.rwkv_head_dim

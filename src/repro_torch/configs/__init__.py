@@ -25,6 +25,7 @@ ARCHS: List[str] = [
 
 PORTED: Dict[str, str] = {
     "zamba2-2.7b": "zamba2_2_7b",
+    "rwkv6-7b": "rwkv6_7b",
     "qwen3-0.6b": "qwen3_0_6b",
     "mixtral-8x7b": "mixtral_8x7b",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",

@@ -4,11 +4,13 @@ The reference keeps parameters as a nested dict whose ``layers`` subtree
 is stacked on a leading layer axis; the port keeps one module per layer.
 Names map one to one: ``params["layers"]["attn"]["wq"][i]`` is
 ``Transformer.layers[i].attn.wq``, ``params["layers"]["moe"]["wi_gate"][i]``
-is ``Transformer.layers[i].moe.wi_gate``, and the unstacked
+is ``Transformer.layers[i].moe.wi_gate`` (``mamba`` and ``rwkv`` alike),
+and the unstacked
 ``params["shared_attn"]["attn"]["wq"]`` is ``Transformer.shared_attn.attn.wq``.
 numpy has no bf16, so arrays arrive widened to f32 and are cast to each
 parameter's dtype on the way in: the model's dtype, and f32 for the MoE
-router and Mamba2's A_log, dt_bias and D, as in the reference.
+router, Mamba2's A_log, dt_bias and D and RWKV6's decay_w0 and bonus_u,
+as in the reference.
 """
 
 from __future__ import annotations
@@ -22,6 +24,9 @@ from torch import nn
 from . import resolve_device
 from .config import ModelConfig
 from .models.transformer import Transformer
+
+# cache entries kept in f32 whatever the model's dtype
+_F32_STATES = ("ssm", "wkv")
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -78,11 +83,13 @@ def cache_from_numpy(tree: Mapping, device=None,
     """The reference's cache, stacked on a leading layer (or invocation)
     axis -> the port's ``{"pos": int, "layers": [...], "shared": [...]}``
     of one nested dict per layer.  Tensors take ``dtype`` (default f32),
-    except the SSM state, which is f32 in both packages."""
+    except the recurrent states (Mamba2's ``ssm``, RWKV6's ``wkv``), which
+    are f32 in both packages."""
     device = resolve_device(device)
 
     def put(name, a):
-        dt = torch.float32 if name == "ssm" else (dtype or torch.float32)
+        dt = (torch.float32 if name in _F32_STATES
+              else (dtype or torch.float32))
         return torch.tensor(np.asarray(a, np.float32), device=device,
                             dtype=dt)
 

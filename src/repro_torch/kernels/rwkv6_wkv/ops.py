@@ -1,0 +1,126 @@
+"""Public op: the RWKV6 WKV recurrence, the Hopper kernel or its plain
+version.
+
+A CPU tensor goes to the plain version (``ref.wkv_ref``).  A CUDA tensor
+launches the kernel in ``csrc/wkv.cu`` or raises: there is no fallback.
+``impl="ref"`` asks for the plain version explicitly, for the tests and
+for comparing the kernel with it on the card.
+
+The op keeps the Pallas kernel's signature, r, k, v, w (B,S,H,P) and u
+(H,P) -> (y (B,S,H,P), final state (B,H,P,P) f32), plus the model's
+initial state.  r, k, v and w are read in place through their strides.
+
+``launches`` counts the kernel launches this process made.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+from .. import _build
+from .ref import wkv_ref
+
+launches = 0
+
+HEAD_DIMS = (16, 32, 64, 128)     # P the kernel is built for
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SOURCES = (Path(__file__).resolve().parent / "csrc" / "wkv.cu",)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    lib = _build.load("rwkv6_wkv", _SOURCES)
+    fn = lib.rwkv6_wkv
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [p] * 8 + [i] * 4 + [ll] * 12 + [i, p]
+    fn.restype = ctypes.c_int
+    lib.rwkv6_wkv_error_string.argtypes = [ctypes.c_int]
+    lib.rwkv6_wkv_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build() -> None:
+    """Build and load the kernel library now (it is otherwise built at the
+    first launch)."""
+    _kernel()
+
+
+def _check(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           w: torch.Tensor, u: torch.Tensor,
+           init_state: Optional[torch.Tensor]) -> None:
+    """Raise ValueError on anything the kernel does not take."""
+    if r.dim() != 4 or u.dim() != 2:
+        raise ValueError(f"need r, k, v, w (B,S,H,P) and u (H,P), got r "
+                         f"{tuple(r.shape)} u {tuple(u.shape)}")
+    Bb, S, H, P = r.shape
+    if any(t.shape != r.shape for t in (k, v, w)) \
+            or tuple(u.shape) != (H, P):
+        raise ValueError(f"shapes r {tuple(r.shape)} k {tuple(k.shape)} v "
+                         f"{tuple(v.shape)} w {tuple(w.shape)} u "
+                         f"{tuple(u.shape)} do not agree")
+    if init_state is not None and tuple(init_state.shape) != (Bb, H, P, P):
+        raise ValueError(f"init_state {tuple(init_state.shape)} != "
+                         f"{(Bb, H, P, P)}")
+    if S < 1 or P not in HEAD_DIMS:
+        raise ValueError(f"need S >= 1 and P one of {HEAD_DIMS} (S={S}, "
+                         f"P={P})")
+    if Bb > 65535 or H > 65535:
+        raise ValueError(f"too many rows ({Bb}) or heads ({H}) for the "
+                         "launch grid")
+    if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
+        raise ValueError(f"dtypes r {r.dtype} k {k.dtype} v {v.dtype}: all "
+                         f"one of {list(_DTYPES)}")
+    if w.dtype != torch.float32 or u.dtype != torch.float32 or (
+            init_state is not None and init_state.dtype != torch.float32):
+        raise ValueError("w, u and init_state must be float32")
+    if any(t.stride(-1) != 1 for t in (r, k, v, w)):
+        raise ValueError("the last dim of r, k, v and w must be contiguous")
+    tensors = (r, k, v, w, u) + (() if init_state is None
+                                 else (init_state,))
+    if r.device.type != "cuda" or any(t.device != r.device
+                                      for t in tensors):
+        raise ValueError(f"wkv kernel needs every tensor on one CUDA "
+                         f"device, got {[str(t.device) for t in tensors]}")
+
+
+def _launch(r, k, v, w, u, init_state):
+    global launches
+    _check(r, k, v, w, u, init_state)
+    Bb, S, H, P = r.shape
+    u = u.contiguous()
+    init = None if init_state is None else init_state.contiguous()
+    y = torch.empty((Bb, S, H, P), dtype=r.dtype, device=r.device)
+    state = torch.empty((Bb, H, P, P), dtype=torch.float32, device=r.device)
+    lib = _kernel()
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        err = lib.rwkv6_wkv(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), None if init is None else init.data_ptr(),
+            y.data_ptr(), state.data_ptr(), Bb, S, H, P,
+            *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *w.stride()[:3], _DTYPES[r.dtype], stream)
+    if err:
+        raise RuntimeError("rwkv6_wkv launch failed: "
+                           f"{lib.rwkv6_wkv_error_string(err).decode()}")
+    launches += 1
+    return y, state
+
+
+def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+        u: torch.Tensor, init_state: Optional[torch.Tensor] = None, *,
+        impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+    """r, k, v: (B,S,H,P) f32 or bf16; w: (B,S,H,P) f32 decays in (0,1);
+    u: (H,P) f32 bonus; init_state: (B,H,P,P) f32 ``[k_dim, v_dim]`` or
+    None.  Returns (y (B,S,H,P) in r's dtype, final_state (B,H,P,P) f32).
+    impl: auto | ref."""
+    if impl == "ref" or (impl == "auto" and r.device.type == "cpu"):
+        return wkv_ref(r, k, v, w, u, init_state)
+    if impl != "auto":
+        raise ValueError(f"unknown impl {impl!r}; expected auto | ref")
+    return _launch(r, k, v, w, u, init_state)

@@ -1,11 +1,12 @@
 """Model assembly: embeddings -> layer stack -> LM head.  The port of
-``repro.models.transformer`` for three block kinds: ``attn`` (GQA with a
-dense SwiGLU MLP), ``moe`` (GQA with a mixture of experts) and ``mamba2``
-(the SSD block), with zamba2's shared attention block (one parameter set,
-attention + dense MLP) applied after every ``shared_attn_every`` layers.
+``repro.models.transformer`` for four block kinds: ``attn`` (GQA with a
+dense SwiGLU MLP), ``moe`` (GQA with a mixture of experts), ``mamba2``
+(the SSD block) and ``rwkv6`` (RWKV6 time mix and channel mix), with
+zamba2's shared attention block (one parameter set, attention + dense
+MLP) applied after every ``shared_attn_every`` layers.
 
 Two serving modes share the block code, as in the reference:
-  prefill : full prompt, caches written (ring buffers / SSM states);
+  prefill : full prompt, caches written (ring buffers / recurrent states);
   decode  : one token against the caches (the serve step);
 plus ``forward_logits``, the full-sequence forward without a cache that
 the teacher-forcing test holds prefill and decode against.
@@ -13,12 +14,13 @@ the teacher-forcing test holds prefill and decode against.
 Parameters live in a ``Transformer`` module whose parameter names follow
 the reference's pytree (``layers.<i>.attn.wq`` for the reference's
 ``params["layers"]["attn"]["wq"][i]``, ``layers.<i>.mamba.w_z`` for
-``params["layers"]["mamba"]["w_z"][i]``, ``shared_attn.attn.wq`` for
+``params["layers"]["mamba"]["w_z"][i]``, ``layers.<i>.rwkv.w_r`` for
+``params["layers"]["rwkv"]["w_r"][i]``, ``shared_attn.attn.wq`` for
 ``params["shared_attn"]["attn"]["wq"]``).  Caches are ``{"pos": int,
 "layers": [...], "shared": [...]}``: a layer holds ``{"k", "v"}`` ring
-buffers (attention kinds) or ``{"ssm", "conv": {"x", "B", "C"}}``
-(mamba2), ``shared`` one ring buffer per invocation of the shared block.
-They are updated in place.
+buffers (attention kinds), ``{"ssm", "conv": {"x", "B", "C"}}`` (mamba2)
+or ``{"wkv", "tm_shift", "cm_shift"}`` (rwkv6), ``shared`` one ring
+buffer per invocation of the shared block.  They are updated in place.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from ..config import ModelConfig
 from . import layers as L
 from . import mamba2 as M
 from . import moe as MOE
+from . import rwkv6 as R
 
 
 def _torch_dtype(name: str) -> torch.dtype:
@@ -43,23 +46,30 @@ def _torch_dtype(name: str) -> torch.dtype:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if (set(cfg.block_pattern) not in ({"attn"}, {"moe"}, {"mamba2"})
+    if (set(cfg.block_pattern) not in ({"attn"}, {"moe"}, {"mamba2"},
+                                       {"rwkv6"})
             or cfg.n_enc_layers or cfg.frontend != "none"):
         raise NotImplementedError(
             f"{cfg.name}: repro_torch serves attention decoders with a dense "
-            "or MoE MLP and Mamba2 stacks only so far (RWKV6, "
-            "encoder-decoder and frontends are later slices)")
+            "or MoE MLP, Mamba2 stacks and RWKV6 stacks only so far "
+            "(encoder-decoder and frontends are later slices)")
 
 
 class Block(nn.Module):
-    """One layer of ``kind``: ln1 and ``mamba`` (``mamba2``), or ln1,
-    attn, ln2 and ``mlp`` (``attn``, also the shared block) or ``moe``
-    (``moe``)."""
+    """One layer of ``kind``: ln1 and ``mamba`` (``mamba2``); ln1, ln2
+    and ``rwkv`` (``rwkv6``); or ln1, attn, ln2 and ``mlp`` (``attn``,
+    also the shared block) or ``moe`` (``moe``)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, *, device,
                  dtype) -> None:
         super().__init__()
         self.ln1 = L._param((cfg.d_model,), device, dtype)
+        if kind == "rwkv6":
+            self.ln2 = L._param((cfg.d_model,), device, dtype)
+            self.rwkv = R.RWKV6(cfg.d_model, cfg.d_ff, cfg.rwkv_heads,
+                                cfg.rwkv_head_dim, device=device,
+                                dtype=dtype)
+            return
         if kind == "mamba2":
             self.mamba = M.Mamba2(cfg.d_model, cfg.d_inner, cfg.ssm_state,
                                   cfg.ssm_heads, cfg.ssm_conv, device=device,
@@ -107,8 +117,9 @@ class Transformer(nn.Module):
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> Transformer:
     """The reference's shapes and laws (``init_params``, ``dense_init``,
-    ``embed_init``, ``moe_params``, ``mamba2_params``, norms at one; the
-    MoE router and Mamba2's A_log, dt_bias and D in f32), drawn from
+    ``embed_init``, ``moe_params``, ``mamba2_params``, ``rwkv6_params``,
+    norms at one; the MoE router, Mamba2's A_log, dt_bias and D and
+    RWKV6's decay_w0 and bonus_u in f32), drawn from
     ``generator``, which must live on ``device``.  torch and jax.random
     give different numbers from one seed: to compare with the reference,
     carry its weights over with ``convert.params_from_numpy``."""
@@ -125,6 +136,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             M.mamba2_init_(blk.mamba, generator)
             continue
         blk.ln2.fill_(1.0)
+        if hasattr(blk, "rwkv"):
+            R.rwkv6_init_(blk.rwkv, generator)
+            continue
         for w in (blk.attn.wq, blk.attn.wk, blk.attn.wv, blk.attn.wo):
             L.dense_init_(w, generator)
         if hasattr(blk, "moe"):
@@ -146,7 +160,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None) -> Dict:
     """Zeroed caches.  Attention: ring buffers of ``max_len`` slots, or the
     sliding window when that is shorter.  Mamba2: the f32 SSM state and the
-    convolutions' last K-1 inputs in the model's dtype."""
+    convolutions' last K-1 inputs in the model's dtype.  RWKV6: the f32
+    WKV state and the two (B, 1, D) shift states in the model's dtype."""
     _check_supported(cfg)
     device = resolve_device(device)
     dtype = _torch_dtype(cfg.dtype)
@@ -168,8 +183,14 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None) -> Dict:
                          "B": zeros(B, kconv, cfg.ssm_state),
                          "C": zeros(B, kconv, cfg.ssm_state)}}
 
-    layer_cache = (mamba_cache if cfg.block_pattern[0] == "mamba2"
-                   else attn_cache)
+    def rwkv_cache():
+        P = cfg.rwkv_head_dim
+        return {"wkv": zeros(B, cfg.rwkv_heads, P, P, dt=torch.float32),
+                "tm_shift": zeros(B, 1, cfg.d_model),
+                "cm_shift": zeros(B, 1, cfg.d_model)}
+
+    layer_cache = {"mamba2": mamba_cache, "rwkv6": rwkv_cache}.get(
+        cfg.block_pattern[0], attn_cache)
     cache = {"pos": 0,
              "layers": [layer_cache() for _ in range(cfg.n_layers)]}
     if cfg.shared_attn_every:
@@ -227,6 +248,36 @@ def _apply_mamba_block(cfg: ModelConfig, p: Block, x, cache: Optional[Dict],
     return x + out
 
 
+def _apply_rwkv_block(cfg: ModelConfig, p: Block, x,
+                      cache: Optional[Dict], *, decode: bool,
+                      impl: str = "auto"):
+    """ln1 + time mix, ln2 + channel mix.  Returns x; the cache's states
+    (the normed inputs' last token and the f32 WKV state) are replaced in
+    place."""
+    kw = dict(n_heads=cfg.rwkv_heads, head_dim=cfg.rwkv_head_dim)
+    h = L.rms_norm(x, p.ln1, cfg.norm_eps)
+    if decode:
+        tm_out, cache["tm_shift"], cache["wkv"] = R.rwkv6_time_mix_step(
+            p.rwkv, h, cache["tm_shift"], cache["wkv"], **kw)
+        x = x + tm_out
+        h2 = L.rms_norm(x, p.ln2, cfg.norm_eps)
+        cm_out, cache["cm_shift"] = R.rwkv6_channel_mix_step(
+            p.rwkv, h2, cache["cm_shift"])
+        return x + cm_out
+    if cache is not None:  # prefill: thread states through (f32 state)
+        tm_out, cache["tm_shift"], cache["wkv"] = R.rwkv6_time_mix(
+            p.rwkv, h, shift_state=cache["tm_shift"],
+            wkv_state=cache["wkv"], return_state=True, impl=impl, **kw)
+        x = x + tm_out
+        h2 = L.rms_norm(x, p.ln2, cfg.norm_eps)
+        cm_out, cache["cm_shift"] = R.rwkv6_channel_mix(
+            p.rwkv, h2, shift_state=cache["cm_shift"], return_state=True)
+        return x + cm_out
+    x = x + R.rwkv6_time_mix(p.rwkv, h, impl=impl, **kw)
+    h2 = L.rms_norm(x, p.ln2, cfg.norm_eps)
+    return x + R.rwkv6_channel_mix(p.rwkv, h2)
+
+
 def _stack(cfg: ModelConfig, params: Transformer, x, positions,
            caches: Optional[Dict], cache_pos: int, *, decode: bool,
            impl: str = "auto", moe_offset=None):
@@ -241,6 +292,9 @@ def _stack(cfg: ModelConfig, params: Transformer, x, positions,
         if hasattr(lp, "mamba"):
             x = _apply_mamba_block(cfg, lp, x, lcache, decode=decode,
                                    impl=impl)
+        elif hasattr(lp, "rwkv"):
+            x = _apply_rwkv_block(cfg, lp, x, lcache, decode=decode,
+                                  impl=impl)
         else:
             x, _, aux = _apply_attn_block(cfg, lp, x, positions, lcache,
                                           cache_pos, decode=decode,
@@ -279,8 +333,8 @@ def prefill(cfg: ModelConfig, params: Transformer, batch: Dict,
             max_len: int, impl: str = "auto"):
     """Process the prompt ``batch["tokens"]`` (B, S); returns (last-token
     logits (B, 1, V), populated cache).  ``impl="ref"`` sends prompt
-    attention, the expert products and the SSD scan to their plain
-    versions even on the card (for comparing)."""
+    attention, the expert products, the SSD scan and the WKV to their
+    plain versions even on the card (for comparing)."""
     tokens = batch["tokens"]
     x = params.embed[tokens]
     B, S = tokens.shape

@@ -48,6 +48,7 @@ def _ulp_tol(want: np.ndarray) -> float:
     ("qwen3-0.6b", {}),
     ("granite-moe-1b-a400m", {"moe_capacity_factor": 8.0}),
     ("zamba2-2.7b", {}),
+    ("rwkv6-7b", {}),
 ])
 def test_bf16_prefill_and_decode_logits_match_jax(arch, over):
     jcfg = dataclasses.replace(jget_smoke(arch), **over)

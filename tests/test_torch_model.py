@@ -50,16 +50,17 @@ def _close(got, want, tol=1e-5):
 
 def test_configs_copied_field_for_field():
     assert sorted(PORTED) == sorted([ARCH, "granite-moe-1b-a400m",
-                                     "mixtral-8x7b", "zamba2-2.7b"])
+                                     "mixtral-8x7b", "zamba2-2.7b",
+                                     "rwkv6-7b"])
     for arch in PORTED:
         for jcfg, cfg in ((jget_config(arch), get_config(arch)),
                           (jget_smoke(arch), get_smoke_config(arch))):
             for f in dataclasses.fields(jconfig.ModelConfig):
                 assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
-            assert (cfg.head_dim, cfg.vocab_padded) == (jcfg.head_dim,
-                                                        jcfg.vocab_padded)
+            assert (cfg.head_dim, cfg.vocab_padded, cfg.rwkv_heads) == (
+                jcfg.head_dim, jcfg.vocab_padded, jcfg.rwkv_heads)
     others = [a for a in ARCHS if a not in PORTED]
-    assert len(others) == 6
+    assert len(others) == 5
     for arch in others:
         with pytest.raises(NotImplementedError, match="not ported"):
             get_config(arch)
