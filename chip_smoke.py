@@ -10,11 +10,13 @@ sources (one ``nvcc`` each, started together) and then:
 2. holds the flash-attention kernel against its plain PyTorch version on
    the card: the reference kernel tests' sweep in f32 and bf16, causal,
    windowed and non-causal, plus GQA, ragged lengths, head dim 80,
-   ring-buffer positions with unwritten (-1) slots, strided views and the
-   served attention models' prefill shapes;
+   ring-buffer positions with unwritten (-1) slots (also with S and T
+   ragged against the kernel's 128-row tiles, at head dims 80 and 128),
+   strided views and the served attention models' prefill shapes;
 3. times the kernel, the plain version and PyTorch's
    ``scaled_dot_product_attention`` (a yardstick only; the port never
-   calls it) at qwen3's and zamba2's prefill shapes, beside the card's
+   calls it) at qwen3's, granite's and zamba2's prefill shapes (head dims
+   128, 64 and 80), in device time and in CUDA events, beside the card's
    bound;
 4. holds the grouped expert matmul (MoE) kernel against its plain
    version in f32 and bf16: the reference sweep, ragged capacities, a
@@ -112,6 +114,10 @@ WKV_SWEEP = [(2, 64, 2, 32), (1, 128, 4, 64), (2, 32, 2, 16)]
 # rwkv6-7b's prefill WKV when serving 3 slots: H = 4096 / 64 heads
 WKV_PREFILL = (3, 1024, 64, 64)
 WKV_CHUNK = 16      # the reference model's chunk, for the bound's count
+# the attention models whose prefill flash is timed, with their head dims;
+# the kernels line's flash entry leads with the first
+FLASH_TIMED = {"qwen3-0.6b": 128, "granite-moe-1b-a400m": 64,
+               "zamba2-2.7b": 80}
 # the port's CUDA kernels, as the profiler names them
 PORT_KERNELS = ("::flash_fwd_", "::gmm_", "::ssd_", "::wkv_")
 
@@ -134,8 +140,9 @@ SERVED = [
         n_layers=32, d_model=4096, d_ff=14336, vocab_size=65536,
         block_pattern=("rwkv6",), rwkv_head_dim=64, rwkv_heads=64)),
 ]
-# prefill logits, kernels vs plain versions, both in bf16: flash rounds P
-# and the output to bf16 in other places than plain attention, the gmm
+# prefill logits, kernels vs plain versions, both in bf16: flash carries P
+# as a bf16 hi + lo pair and sums in another order than plain attention
+# before the output's one rounding, the gmm
 # kernel sums in another order before its one rounding, the ssd kernel
 # splits its f32 operands into bf16 pairs and scans in chunks of another
 # size, and 24 to 63 blocks carry those one-ulp differences to the
@@ -191,14 +198,16 @@ def device_ms(torch, fn, iters: int = 20) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    check(busy_us > 0, "the profiler saw no device time")
-    return busy_us / 1e3 / iters
+    for _ in range(3):     # the profiler now and then records no kernels
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        if busy_us > 0:
+            return busy_us / 1e3 / iters
+    raise SmokeFailure("the profiler saw no device time in 3 tries")
 
 
 def flash_kernel_phase(torch, fa, gen):
@@ -267,6 +276,20 @@ def flash_kernel_phase(torch, fa, gen):
         for window in (0, 64):
             positional(f"ring k_pos with -1 slots, window={window} {short}",
                        dtype, q, k, v, arange(S, T - S), k_pos, window, True)
+        # the same with S and T not multiples of the 128-row tiles, T != S:
+        # tiles the producer skips, tiles it finds fully visible and tiles
+        # masked element by element, at the head dims split into regions
+        T, S = 333, 200
+        k_pos = torch.randperm(T, generator=gen, device="cuda").to(
+            torch.int32)
+        k_pos[torch.randperm(T, generator=gen, device="cuda")[:50]] = -1
+        for Hq, Hkv, D in ((8, 4, 128), (4, 4, 80)):
+            q = rnd((2, S, Hq, D), dtype)
+            k, v = rnd((2, T, Hkv, D), dtype), rnd((2, T, Hkv, D), dtype)
+            for window in (0, 100):
+                positional(f"ring S{S} T{T} Hq{Hq} Hkv{Hkv} D{D} -1 slots, "
+                           f"window={window} {short}", dtype, q, k, v,
+                           arange(S, T - S), k_pos, window, True)
 
         # strided views: q, k, v sliced out of one fused projection
         qkv = rnd((2, 384, 16 + 8 + 8, 128), dtype)
@@ -291,17 +314,30 @@ def flash_kernel_phase(torch, fa, gen):
 
 
 def flash_timing_phase(torch, fa, arch, inputs):
+    """The kernel, the plain version and SDPA at one served prefill shape,
+    beside the bound.  Times are device time (``device_ms``, mean of 20
+    calls); the CUDA-event times of back-to-back calls (median of 5, host
+    launch included) are printed and kept beside them: a call's host work
+    takes longer than the kernel at these shapes, so events measure the
+    host."""
     q, k, v, q_pos, k_pos = inputs
     B, S, Hq, D = q.shape
     T = k.shape[1]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    ms = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, q_pos,
-                                                       k_pos))
-    plain_ms = time_ms(torch, lambda: fa.flash_attention_fwd(
-        q, k, v, q_pos, k_pos, impl="ref"), iters=3)
-    library_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
-                                             enable_gqa=True))
+
+    def kernel():
+        return fa.flash_attention_fwd(q, k, v, q_pos, k_pos)
+
+    def library():
+        return sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    ms = device_ms(torch, kernel)
+    event_ms = time_ms(torch, kernel)
+    plain_ms = device_ms(torch, lambda: fa.flash_attention_fwd(
+        q, k, v, q_pos, k_pos, impl="ref"), 5)
+    library_ms = device_ms(torch, library)
+    library_event_ms = time_ms(torch, library)
 
     # bound: the pairs this run's positions leave visible, each costing a
     # QK^T and a PV product (2 FLOP per multiply-add); each input byte
@@ -315,12 +351,16 @@ def flash_timing_phase(torch, fa, arch, inputs):
     bound_ms = max(t_ops, t_bytes)
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
     print(f"flash timing at {arch}'s prefill shape B{B} S=T={S} Hq{Hq} "
-          f"Hkv{k.shape[2]} D{D} {q.dtype} causal (median of 5):")
-    print(f"  flash kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
-          f"sdpa (yardstick) {library_ms:.4f} ms | bound {bound_ms:.4f} ms "
-          f"({bound_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
+          f"Hkv{k.shape[2]} D{D} {q.dtype} causal (device time, mean of 20 "
+          "calls):")
+    print(f"  flash kernel {ms:.4f} ms (events, launch included: "
+          f"{event_ms:.4f} ms) | plain {plain_ms:.4f} ms | sdpa (yardstick) "
+          f"{library_ms:.4f} ms (events {library_event_ms:.4f} ms) | bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, "
+          f"{nbytes / 1e6:.2f} MB)")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by, "event_ms": event_ms,
+            "library_event_ms": library_event_ms}
 
 
 def gmm_kernel_phase(torch, gm, gen):
@@ -950,9 +990,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     flash_err, inputs = flash_kernel_phase(torch, fa, gen)
     torch.cuda.synchronize()
-    flash_times = flash_timing_phase(torch, fa, "qwen3-0.6b",
-                                     inputs["qwen3-0.6b"])
-    flash_timing_phase(torch, fa, "zamba2-2.7b", inputs["zamba2-2.7b"])
+    flash_times = {arch: flash_timing_phase(torch, fa, arch, inputs[arch])
+                   for arch in FLASH_TIMED}
     del inputs
     gmm_err = gmm_kernel_phase(torch, gm, gen)
     gmm_times = gmm_timing_phase(torch, gm, gen)
@@ -978,7 +1017,10 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention/kernel.py:78",
         "launches": launches["flash"],
         "max_abs_err": flash_err,
-        **flash_times,
+        **flash_times["qwen3-0.6b"],
+        # the same figures at every served head dim (granite 64, zamba2 80)
+        "by_shape": [{"arch": arch, "head_dim": d, **flash_times[arch]}
+                     for arch, d in FLASH_TIMED.items()],
     }, {
         "name": "moe_gmm",
         "route": "cuda",

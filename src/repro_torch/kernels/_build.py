@@ -5,6 +5,8 @@ shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds).  The library lands in ``build/repro_torch_kernels/`` at
 the root of the checkout, keyed by a hash of the sources and the flags,
 so an edited source is rebuilt and an unchanged one is loaded as is.
+The headers under ``kernels/common/`` (``#include "common/..."``) are
+hashed with every library, so an edited header rebuilds them all.
 Nothing prebuilt is committed.
 """
 
@@ -20,10 +22,16 @@ import tempfile
 from pathlib import Path
 from typing import Sequence
 
-REPO_ROOT = Path(__file__).resolve().parents[3]
+KERNELS_DIR = Path(__file__).resolve().parent
+REPO_ROOT = KERNELS_DIR.parents[2]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def common_headers() -> list[Path]:
+    """The shared headers every kernel source may include."""
+    return sorted((KERNELS_DIR / "common").glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -38,7 +46,8 @@ def _nvcc() -> str:
 
 def library_path(name: str, sources: Sequence[Path]) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in [*sources, *common_headers()]:
+        h.update(Path(src).name.encode())
         h.update(Path(src).read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
@@ -54,7 +63,8 @@ def build(name: str, sources: Sequence[Path]) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(KERNELS_DIR), "-o", tmp,
+               *map(str, sources)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed building {name} "

@@ -5,6 +5,11 @@ tensor launches the kernel in ``csrc/flash_fwd.cu`` or raises: there is no
 fallback.  ``impl="ref"`` asks for the plain version explicitly, for the
 tests and for comparing the kernel with it on the card.
 
+The bf16 kernel reads q, k and v through TMA, which needs 16-byte
+aligned bases and strides; ``tma_strides`` says whether a tensor meets
+that, and ``tma_operands`` hands the kernel a contiguous copy of one that
+does not (never the plain version).
+
 ``launches`` counts the kernel launches this process made.
 """
 
@@ -24,6 +29,44 @@ launches = 0
 HEAD_DIMS = (16, 32, 64, 80, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu",)
+_TMA_ALIGN = 16               # bytes, for a tensor map's base and strides
+_TMA_MAX_STRIDE = 1 << 40     # bytes
+
+
+def tma_strides(t: torch.Tensor) -> tuple[int, int, int] | None:
+    """The (B, rows, H) strides, in elements, with which TMA reads the
+    4-d ``t`` in place, or None when it cannot: a base address or a stride
+    that is not a multiple of 16 bytes, or a zero stride.  A dim of size 1
+    is never stepped along, so its stride is replaced by the one a
+    contiguous tensor would have there (torch leaves such strides free)."""
+    if t.data_ptr() % _TMA_ALIGN:
+        return None
+    size = t.element_size()
+    shape, strides = t.shape, t.stride()
+    out = [0, 0, 0]
+    inner = shape[3]
+    for dim in (2, 1, 0):
+        stride = strides[dim] if shape[dim] > 1 else inner
+        nbytes = stride * size
+        if nbytes <= 0 or nbytes % _TMA_ALIGN or nbytes >= _TMA_MAX_STRIDE:
+            return None
+        out[dim] = stride
+        inner *= shape[dim]
+    return tuple(out)
+
+
+def tma_operands(*ts: torch.Tensor) -> list[tuple[torch.Tensor,
+                                                  tuple[int, int, int]]]:
+    """Each tensor with the strides the kernel reads it by: the tensor
+    itself where TMA can read it in place, else a contiguous copy."""
+    out = []
+    for t in ts:
+        strides = tma_strides(t)
+        if strides is None:
+            t = t.clone(memory_format=torch.contiguous_format)
+            strides = tma_strides(t)
+        out.append((t, strides))
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -57,9 +100,11 @@ def _check(q, k, v, q_pos, k_pos) -> None:
     if tuple(k.shape) != (B, T, Hkv, D) or v.shape != k.shape:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} do not agree")
-    if S < 1 or T < 1 or Hkv < 1 or Hq % Hkv or (S + 63) // 64 > 65535:
-        raise ValueError(f"need 1 <= S < 2**22, T >= 1, Hq % Hkv == 0 "
-                         f"(S={S}, T={T}, Hq={Hq}, Hkv={Hkv})")
+    if S < 1 or T < 1 or Hkv < 1 or Hq % Hkv or (S + 63) // 64 > 65535 \
+            or B * Hq * ((S + 127) // 128) >= 2**31:
+        raise ValueError(f"need 1 <= S < 2**22, T >= 1, Hq % Hkv == 0 and "
+                         f"fewer than 2**31 (batch, head, 128-row) tiles "
+                         f"(B={B}, S={S}, T={T}, Hq={Hq}, Hkv={Hkv})")
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} not supported; kernel takes "
                          f"{HEAD_DIMS}")
@@ -82,6 +127,13 @@ def _launch(q, k, v, q_pos, k_pos, window: int, causal: bool):
     _check(q, k, v, q_pos, k_pos)
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
+    if q.dtype == torch.bfloat16:
+        (q, sq), (k, sk), (v, sv) = tma_operands(q, k, v)
+        # the kernel reads positions 16 bytes at a time
+        q_pos, k_pos = (t.clone() if t.data_ptr() % _TMA_ALIGN else t
+                        for t in (q_pos, k_pos))
+    else:
+        sq, sk, sv = (t.stride()[:3] for t in (q, k, v))
     lib = _kernel()
     out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
@@ -89,8 +141,8 @@ def _launch(q, k, v, q_pos, k_pos, window: int, causal: bool):
         err = lib.flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             q_pos.data_ptr(), k_pos.data_ptr(), B, S, T, Hq, Hkv, D,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            int(window), int(bool(causal)), _DTYPES[q.dtype], stream)
+            *sq, *sk, *sv, int(window), int(bool(causal)), _DTYPES[q.dtype],
+            stream)
     if err:
         raise RuntimeError("flash_fwd launch failed: "
                            f"{lib.flash_fwd_error_string(err).decode()}")

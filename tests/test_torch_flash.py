@@ -116,3 +116,55 @@ def test_non_cpu_tensor_never_falls_back_to_plain():
     with pytest.raises(ValueError, match="CUDA"):
         ops.flash_attention_fwd(q, q, q, pos, pos)
     assert ops.launches == before
+
+
+def _view(shape, strides, offset=0, dtype=torch.bfloat16):
+    base = torch.zeros(offset + sum((n - 1) * s for n, s in
+                                    zip(shape, strides)) + 1, dtype=dtype)
+    return base.as_strided(shape, strides, offset)
+
+
+@pytest.mark.parametrize("name,shape,strides,offset,want", [
+    # contiguous (B,S,H,D)
+    ("contiguous", (2, 10, 4, 64), (2560, 256, 64, 1), 0, (2560, 256, 64)),
+    # q, k, v as head slices of one fused projection: read in place
+    ("fused qkv view", (2, 10, 4, 64), (7680, 768, 64, 1), 256,
+     (7680, 768, 64)),
+    # size-1 dims may carry any stride; they are never stepped along
+    ("size-1 dims", (1, 10, 1, 80), (3, 80, 7, 1), 0, (800, 80, 80)),
+    # a row start 2 bytes off 16: the pad=1 view of the card test
+    ("unaligned base", (1, 10, 4, 64), (7681, 769, 64, 1), 1, None),
+    # head stride of 40 bytes: D sliced out of wider rows
+    ("stride not a multiple of 16 bytes", (1, 10, 3, 16), (600, 60, 20, 1),
+     0, None),
+    # a batch broadcast by expand
+    ("zero stride", (2, 10, 4, 64), (0, 256, 64, 1), 0, None),
+])
+def test_tma_strides_say_what_tma_reads_in_place(name, shape, strides,
+                                                  offset, want):
+    """The bf16 kernel reads q, k and v through TMA tensor maps, which need
+    16-byte aligned bases and strides: ``tma_strides`` gives the (B, rows,
+    H) strides the maps use, or None where the wrapper must copy."""
+    t = _view(shape, strides, offset)
+    assert t.data_ptr() % 16 == (offset * 2) % 16
+    assert ops.tma_strides(t) == want, name
+
+
+@pytest.mark.parametrize("pad", [0, 1])
+def test_tma_operands_copy_only_what_tma_cannot_read(pad):
+    """An aligned view goes to the kernel as it is; an unaligned one as a
+    contiguous copy with the same values, never to the plain version."""
+    rng = np.random.default_rng(3)
+    S, H, D = 12, 4, 64
+    fused = torch.from_numpy(_normal(rng, (2, S, 3 * H * D + 8))).to(
+        torch.bfloat16)[..., pad:pad + 3 * H * D].reshape(2, S, 3 * H, D)
+    q, k, v = fused[:, :, :H], fused[:, :, H:2 * H], fused[:, :, 2 * H:]
+    out = ops.tma_operands(q, k, v)
+    for t, (got, strides) in zip((q, k, v), out):
+        torch.testing.assert_close(got, t, atol=0, rtol=0)
+        if pad == 0:
+            assert got is t and strides == t.stride()[:3]
+        else:
+            assert got is not t and got.is_contiguous()
+            assert got.data_ptr() % 16 == 0
+            assert strides == (S * H * D, H * D, D)
