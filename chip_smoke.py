@@ -18,11 +18,15 @@ sources (one ``nvcc`` each, started together) and then:
    calls it) at qwen3's, granite's and zamba2's prefill shapes (head dims
    128, 64 and 80), in device time and in CUDA events, beside the card's
    bound;
-4. holds the grouped expert matmul (MoE) kernel against its plain
-   version in f32 and bf16: the reference sweep, ragged capacities, a
-   strided 4-d expert buffer and granite-moe's prefill and decode shapes;
-   then times it, the plain version and ``torch.bmm`` (a yardstick only)
-   at those two shapes, beside the card's bound;
+4. holds the grouped expert matmul (MoE) kernels against their plain
+   version in f32 and bf16 (bf16 has a wide kernel for many rows an
+   expert and a narrow one for few; each case checks which ran): the
+   reference sweep, ragged capacities, 64-row half-tiles ending inside a
+   batch row, rows on each side of the narrow kernel's limit, its N at 8
+   to 64, strided 4-d expert buffers and granite-moe's prefill and decode
+   shapes; then times both products (wi and wo) at those two shapes, with
+   the kernel chosen and the host's time a call, beside the plain version,
+   ``torch.bmm`` (a yardstick only) and the card's bound;
 5. holds the Mamba2 SSD scan kernel against its plain version in f32 and
    bf16: the reference sweep, ragged lengths, an initial state, a strided
    view and zamba2's prefill shape; then times it and the plain version
@@ -93,6 +97,9 @@ GMM_SWEEP = [(4, 128, 256, 128), (2, 256, 512, 256)]
 # _capacity(1 token) at decode
 GMM_PREFILL = (3, 32, 320, 1024, 512)
 GMM_DECODE = (3, 32, 8, 1024, 512)
+# (B, C) whose B * C rows sit on each side of the narrow kernel's limit of
+# 64 (64 and 72, twice), and its N at 8, 16, 24 and 64
+GMM_ROWS = [(1, 64), (1, 72), (8, 8), (3, 24), (1, 8), (2, 8), (3, 8)]
 
 # SSD scan: f32 atol = rtol (tests/test_kernels.py; the kernel's chunk of
 # 64 against the plain version's 256 moves y by about 4e-5); bf16
@@ -187,6 +194,19 @@ def time_ms(torch, fn, iters: int = 10, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+def host_time_us(torch, fn, calls: int = 20) -> float:
+    """Host time of one call, in us: ``calls`` calls issued back to back
+    after a synchronise, timed on the host clock before the card is
+    waited for (few enough that the launch queue never fills)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t) * 1e6 / calls
+    torch.cuda.synchronize()
+    return us
 
 
 def device_ms(torch, fn, iters: int = 20) -> float:
@@ -365,14 +385,22 @@ def flash_timing_phase(torch, fa, arch, inputs):
 
 def gmm_kernel_phase(torch, gm, gen):
     """Every case: kernel vs plain on the same inputs, compared normalised
-    by max |want|.  Returns the max abs error at granite's prefill shape
-    (bf16, both products)."""
+    by max |want|; each case also checks which kernel ran (bf16: the wide
+    or the narrow one, by the rows an expert holds) and that the call
+    counted one launch.  Returns the max abs error at granite's prefill
+    shape (bf16, both products)."""
     def rnd(shape, dtype, scale=1.0):
         return (torch.randn(shape, generator=gen, device="cuda",
                             dtype=torch.float32) * scale).to(dtype)
 
     def compare(name, x, w):
+        B, C = (x.shape[0] if x.dim() == 4 else 1), x.shape[-2]
+        kernel = gm.choose_kernel(x.dtype, B, C)
+        before = gm.launches
         got = gm.grouped_matmul(x, w)
+        check(gm.launches == before + 1 and gm.last_kernel == kernel,
+              f"gmm ran {gm.last_kernel} ({gm.launches - before} launches), "
+              f"not one {kernel}: {name}")
         want = gm.grouped_matmul(x, w, impl="ref")
         check(got.shape == want.shape and got.dtype == x.dtype,
               f"gmm kernel gave {tuple(got.shape)} {got.dtype}: {name}")
@@ -380,8 +408,9 @@ def gmm_kernel_phase(torch, gm, gen):
         scale = want.float().abs().max().item()
         tol = GMM_TOL[str(x.dtype)]
         ok = diff <= tol * scale
-        print(f"  {name:<58} max_abs_err={diff:.3e} (normalised "
-              f"{diff / scale:.2e}, tol {tol:g}) {'ok' if ok else 'FAIL'}")
+        print(f"  {name:<58} {kernel:<6} max_abs_err={diff:.3e} "
+              f"(normalised {diff / scale:.2e}, tol {tol:g}) "
+              f"{'ok' if ok else 'FAIL'}")
         check(ok, f"gmm kernel disagrees with plain: {name}")
         return diff
 
@@ -396,10 +425,24 @@ def gmm_kernel_phase(torch, gm, gen):
         for C in (8, 24, 320):
             compare(f"ragged E4 C{C} D512 F256 {short}",
                     rnd((4, C, 512), dtype), rnd((4, 512, 256), dtype, 0.05))
-        # a (B,E,C,D) buffer read in place through its strides
+        # half-tiles of 64 rows that end inside a batch row (wide kernel)
+        for C in (40, 200, 328):
+            compare(f"ragged B3 E4 C{C} D256 F384 {short}",
+                    rnd((3, 4, C, 256), dtype),
+                    rnd((4, 256, 384), dtype, 0.05))
+        # rows an expert holds on each side of the narrow kernel's limit,
+        # and the narrow kernel's N at 8, 16, 24 and 64
+        for B, C in GMM_ROWS:
+            compare(f"rows B{B} C{C} ({B * C}) E8 D1024 F512 {short}",
+                    rnd((B, 8, C, 1024), dtype),
+                    rnd((8, 1024, 512), dtype, 1024 ** -0.5))
+        # a (B,E,C,D) buffer read in place through its strides, by each
+        # bf16 kernel
         big = rnd((3, 5, 48, 144), dtype)
         compare(f"strided 4-d x (3,4,40,128) of (3,5,48,144) {short}",
                 big[:, 1:, 3:43, 8:136], rnd((4, 128, 96), dtype, 0.05))
+        compare(f"strided 4-d x (3,4,8,128) of (3,5,48,144) {short}",
+                big[:, 1:, 3:11, 8:136], rnd((4, 128, 96), dtype, 0.05))
         # granite's serving shapes: both products at prefill and decode
         for label, (B, E, C, D, F) in (("prefill", GMM_PREFILL),
                                        ("decode", GMM_DECODE)):
@@ -417,59 +460,69 @@ def gmm_kernel_phase(torch, gm, gen):
 
 
 def gmm_timing_phase(torch, gm, gen):
-    """The wi product (x @ w_gate) at granite's prefill and decode shapes:
-    kernel, plain version and torch.bmm (a yardstick, over an expert-major
-    copy of x made outside the timed region) beside the bound.  Times are
-    device time (``device_ms``); the kernel's CUDA-event time per call,
-    host launch included, is printed beside it.  Each call takes the next
-    of several input sets that together exceed the L2 four times, so it
-    reads its weights from device memory, as each layer of a serve step
-    does."""
-    print("gmm timing, granite-moe-1b-a400m's wi product, bfloat16, cold "
-          "L2 (device time, mean of 20 calls):")
-    out = {}
-    for label, (B, E, C, D, F) in (("prefill", GMM_PREFILL),
-                                   ("decode", GMM_DECODE)):
-        nbytes = (B * E * C * D + E * D * F + B * E * C * F) * 2
-        sets = []
-        for _ in range(max(2, -(-4 * int(L2_BYTES) // nbytes))):
-            x = torch.randn((B, E, C, D), generator=gen, device="cuda").to(
-                torch.bfloat16)
-            w = (torch.randn((E, D, F), generator=gen, device="cuda")
-                 * D ** -0.5).to(torch.bfloat16)
-            sets.append((x, w, x.transpose(0, 1).reshape(E, B * C, D)))
+    """Both products of granite's MoE layer, wi (x @ w_gate, D -> F) and
+    wo (h @ wo, F -> D), at its prefill and decode shapes: kernel, plain
+    version and torch.bmm (a yardstick, over an expert-major copy of x
+    made outside the timed region) beside the bound.  Times are device
+    time (``device_ms``); the kernel's CUDA-event time per call and the
+    host's time per call (the wrapper and the launch, with the card
+    running behind) are printed beside it.  Each call takes the next of
+    several input sets that together exceed the L2 four times, so it reads
+    its weights from device memory, as each layer of a serve step does.
+    Returns one entry a product and shape; the first is prefill wi."""
+    print("gmm timing, granite-moe-1b-a400m's expert products, bfloat16, "
+          "cold L2 (device time, mean of 20 calls):")
+    out = []
+    for label, (B, E, C, Dm, Ff) in (("prefill", GMM_PREFILL),
+                                     ("decode", GMM_DECODE)):
+        for product, (D, F) in (("wi", (Dm, Ff)), ("wo", (Ff, Dm))):
+            nbytes = (B * E * C * D + E * D * F + B * E * C * F) * 2
+            sets = []
+            for _ in range(max(2, -(-4 * int(L2_BYTES) // nbytes))):
+                x = torch.randn((B, E, C, D), generator=gen,
+                                device="cuda").to(torch.bfloat16)
+                w = (torch.randn((E, D, F), generator=gen, device="cuda")
+                     * D ** -0.5).to(torch.bfloat16)
+                sets.append((x, w, x.transpose(0, 1).reshape(E, B * C, D)))
 
-        def rotating(call, n=len(sets)):
-            state = {"i": 0}
+            def rotating(call, n=len(sets)):
+                state = {"i": 0}
 
-            def fn():
-                state["i"] = (state["i"] + 1) % n
-                return call(*sets[state["i"]])
-            return fn
+                def fn():
+                    state["i"] = (state["i"] + 1) % n
+                    return call(*sets[state["i"]])
+                return fn
 
-        kernel = rotating(lambda x, w, _: gm.grouped_matmul(x, w))
-        ms = device_ms(torch, kernel)
-        event_ms = time_ms(torch, kernel, iters=20)
-        plain_ms = device_ms(torch, rotating(
-            lambda x, w, _: gm.grouped_matmul(x, w, impl="ref")), 5)
-        library_ms = device_ms(torch, rotating(
-            lambda _, w, x_em: torch.bmm(x_em, w)))
-        # bound: 2 FLOP per multiply-add; x and w read once, out written once
-        flops = 2 * B * E * C * D * F
-        t_ops = flops / PEAK_FLOPS["torch.bfloat16"] * 1e3
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        bound_ms = max(t_ops, t_bytes)
-        bound_by = "operations" if t_ops >= t_bytes else "bytes"
-        print(f"  {label} x{(B, E, C, D)} @ w{(E, D, F)}, {len(sets)} input "
-              f"sets: gmm kernel {ms:.4f} ms (events, launch included: "
-              f"{event_ms:.4f} ms) | plain {plain_ms:.4f} ms | bmm "
-              f"(yardstick) {library_ms:.4f} ms | bound {bound_ms:.4f} ms "
-              f"({bound_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} "
-              "MB)")
-        out[label] = {"ms": ms, "plain_ms": plain_ms,
-                      "library_ms": library_ms, "bound_ms": bound_ms,
-                      "bound_by": bound_by}
-        del sets
+            kernel = rotating(lambda x, w, _: gm.grouped_matmul(x, w))
+            ms = device_ms(torch, kernel)
+            event_ms = time_ms(torch, kernel, iters=20)
+            host_us = statistics.median(host_time_us(torch, kernel)
+                                        for _ in range(5))
+            plain_ms = device_ms(torch, rotating(
+                lambda x, w, _: gm.grouped_matmul(x, w, impl="ref")), 5)
+            library_ms = device_ms(torch, rotating(
+                lambda _, w, x_em: torch.bmm(x_em, w)))
+            # bound: 2 FLOP per multiply-add; x and w read once, out
+            # written once
+            flops = 2 * B * E * C * D * F
+            t_ops = flops / PEAK_FLOPS["torch.bfloat16"] * 1e3
+            t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+            bound_ms = max(t_ops, t_bytes)
+            bound_by = "operations" if t_ops >= t_bytes else "bytes"
+            chosen = gm.choose_kernel(torch.bfloat16, B, C)
+            print(f"  {label} {product} x{(B, E, C, D)} @ w{(E, D, F)}, "
+                  f"{len(sets)} input sets: gmm {chosen} kernel {ms:.4f} ms "
+                  f"(events, launch included: {event_ms:.4f} ms; host "
+                  f"{host_us:.1f} us a call) | plain {plain_ms:.4f} ms | bmm "
+                  f"(yardstick) {library_ms:.4f} ms | bound {bound_ms:.4f} "
+                  f"ms ({bound_by}: {flops / 1e9:.2f} GFLOP, "
+                  f"{nbytes / 1e6:.2f} MB)")
+            out.append({"shape": label, "product": product, "kernel": chosen,
+                        "ms": ms, "plain_ms": plain_ms,
+                        "library_ms": library_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "event_ms": event_ms,
+                        "host_us": host_us})
+            del sets
     return out
 
 
@@ -1028,7 +1081,11 @@ def main() -> int:
         "replaces": "src/repro/kernels/moe_gmm/kernel.py:42",
         "launches": launches["gmm"],
         "max_abs_err": gmm_err,
-        **gmm_times["prefill"],
+        **{k: gmm_times[0][k] for k in ("ms", "plain_ms", "library_ms",
+                                        "bound_ms", "bound_by")},
+        # the same figures for wi and wo at prefill (wide kernel) and
+        # decode (narrow kernel); the entry leads with prefill wi
+        "by_shape": gmm_times,
     }, {
         "name": "mamba2_ssd",
         "route": "cuda",

@@ -195,6 +195,19 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p,
   return d;
 }
 
+// The descriptor of an MN-major operand more than one swizzle atom wide
+// (128-byte swizzle: 64 bf16 values along MN, as a TMA box of 64 x rows
+// wrote it).  Its atoms lie `atom_bytes` apart along MN (the leading
+// byte offset) and its 8-row groups along K 1024 bytes apart (SBO).
+__device__ __forceinline__ uint64_t smem_desc_mn128(const void* p,
+                                                    uint32_t atom_bytes) {
+  uint64_t d = (smem_addr(p) & 0x3FFFFu) >> 4;
+  d |= uint64_t((atom_bytes >> 4) & 0x3FFFu) << 16;       // LBO
+  d |= uint64_t(1024u >> 4) << 32;                         // SBO
+  d |= uint64_t(1) << 62;                                  // 128-byte swizzle
+  return d;
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -310,6 +323,206 @@ __device__ __forceinline__ void wgmma_rs_tb<16>(float (&d)[8],
         "r"(accumulate));
 }
 
+#define HOPPER_F4(d, i) \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+
+// d (64 x N, f32) {=, +=} A (64 x 16) B (16 x N), A and B bf16 in shared
+// memory.  TA = 1 reads A M-major (M contiguous, transposed), TA = 0
+// K-major; TB likewise for B (1: N contiguous).  The accumulator layout
+// is wgmma_m64n128k16_ss's, N/8 column chunks of it.  N is 8 to 64 in
+// steps of 8, or 256; wgmma_ss<N, TA, TB>(...) picks the instruction.
+template <int N>
+struct WgmmaSS;
+
+template <>
+struct WgmmaSS<8> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void run(float (&d)[4], uint64_t desc_a,
+                                             uint64_t desc_b, int accumulate) {
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "%4, %5, p, 1, 1, %7, %8;\n"
+      "}\n"
+      : HOPPER_F4(d, 0)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB));
+  }
+};
+
+template <>
+struct WgmmaSS<16> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void run(float (&d)[8], uint64_t desc_a,
+                                             uint64_t desc_b, int accumulate) {
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, %11, %12;\n"
+      "}\n"
+      : HOPPER_F8(d, 0)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB));
+  }
+};
+
+template <>
+struct WgmmaSS<24> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void run(float (&d)[12], uint64_t desc_a,
+                                             uint64_t desc_b, int accumulate) {
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, "
+      "%12, %13, p, 1, 1, %15, %16;\n"
+      "}\n"
+      : HOPPER_F8(d, 0), HOPPER_F4(d, 8)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB));
+  }
+};
+
+template <>
+struct WgmmaSS<32> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void run(float (&d)[16], uint64_t desc_a,
+                                             uint64_t desc_b, int accumulate) {
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n"
+      "}\n"
+      : HOPPER_F8(d, 0), HOPPER_F8(d, 8)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB));
+  }
+};
+
+template <>
+struct WgmmaSS<40> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void run(float (&d)[20], uint64_t desc_a,
+                                             uint64_t desc_b, int accumulate) {
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %22, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19}, "
+      "%20, %21, p, 1, 1, %23, %24;\n"
+      "}\n"
+      : HOPPER_F8(d, 0), HOPPER_F8(d, 8), HOPPER_F4(d, 16)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB));
+  }
+};
+
+template <>
+struct WgmmaSS<48> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void run(float (&d)[24], uint64_t desc_a,
+                                             uint64_t desc_b, int accumulate) {
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "%24, %25, p, 1, 1, %27, %28;\n"
+      "}\n"
+      : HOPPER_F8(d, 0), HOPPER_F8(d, 8), HOPPER_F8(d, 16)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB));
+  }
+};
+
+template <>
+struct WgmmaSS<56> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void run(float (&d)[28], uint64_t desc_a,
+                                             uint64_t desc_b, int accumulate) {
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %30, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27}, "
+      "%28, %29, p, 1, 1, %31, %32;\n"
+      "}\n"
+      : HOPPER_F8(d, 0), HOPPER_F8(d, 8), HOPPER_F8(d, 16), HOPPER_F4(d, 24)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB));
+  }
+};
+
+template <>
+struct WgmmaSS<64> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t desc_a,
+                                             uint64_t desc_b, int accumulate) {
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : HOPPER_F8(d, 0), HOPPER_F8(d, 8), HOPPER_F8(d, 16), HOPPER_F8(d, 24)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB));
+  }
+};
+
+template <>
+struct WgmmaSS<256> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void run(float (&d)[128], uint64_t desc_a,
+                                             uint64_t desc_b, int accumulate) {
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, "
+      "%128, %129, p, 1, 1, %131, %132;\n"
+      "}\n"
+      : HOPPER_F8(d, 0), HOPPER_F8(d, 8), HOPPER_F8(d, 16), HOPPER_F8(d, 24),
+        HOPPER_F8(d, 32), HOPPER_F8(d, 40), HOPPER_F8(d, 48),
+        HOPPER_F8(d, 56), HOPPER_F8(d, 64), HOPPER_F8(d, 72),
+        HOPPER_F8(d, 80), HOPPER_F8(d, 88), HOPPER_F8(d, 96),
+        HOPPER_F8(d, 104), HOPPER_F8(d, 112), HOPPER_F8(d, 120)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB));
+  }
+};
+
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
+                                         uint64_t desc_b, int accumulate) {
+  WgmmaSS<N>::template run<TA, TB>(d, desc_a, desc_b, accumulate);
+}
+
+#undef HOPPER_F4
 #undef HOPPER_F8
 
 // ---------------------------------------------------------------------------

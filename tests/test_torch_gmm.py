@@ -108,3 +108,49 @@ def test_kernel_checks_raise_on_what_it_does_not_take(case, match):
         x = torch.zeros(2, 8, 20)[..., :16]
     with pytest.raises(ValueError, match=match):
         ops._check(x, w)
+
+
+@pytest.mark.parametrize("B,C,want", [
+    (3, 8, "narrow"),      # granite's decode: 24 rows an expert
+    (3, 320, "wide"),      # granite's prefill: 960 rows
+    (1, 64, "narrow"),     # 64 rows: the narrow kernel's limit
+    (8, 8, "narrow"),
+    (1, 72, "wide"),       # 72 rows: one past it
+    (3, 24, "wide"),
+    (2, 28, "narrow"),     # C padded to 32 a batch row: 64 rows
+    (3, 20, "wide"),       # padded to 24 a batch row: 72 rows
+])
+def test_bf16_kernel_choice_follows_the_rows_an_expert_holds(B, C, want):
+    """bf16 picks the narrow kernel up to NARROW_MAX_ROWS rows (each batch
+    row's C padded to 8, the narrow kernel's N), the wide one past it;
+    f32 always has its own kernel."""
+    assert ops.narrow_rows(B, C) == B * -(-C // 8) * 8
+    assert ops.choose_kernel(torch.bfloat16, B, C) == want
+    assert (ops.narrow_rows(B, C) <= ops.NARROW_MAX_ROWS) == \
+        (want == "narrow")
+    assert ops.choose_kernel(torch.float32, B, C) == "f32"
+
+
+@pytest.mark.parametrize("shape,strides,want", [
+    ((3, 32, 8, 1024), (262144, 8192, 1024, 1), (262144, 8192, 1024)),
+    # a strided view: strides kept as they are
+    ((3, 4, 40, 128), (34560, 6912, 144, 1), (34560, 6912, 144)),
+    # a dim of size 1: its free stride replaced by the contiguous one
+    ((1, 4, 8, 64), (7, 512, 64, 1), (2048, 512, 64)),
+    ((32, 1024, 512), (0, 512, 1), None),       # broadcast: zero stride
+    ((2, 8, 16), (128, 12, 1), None),            # 24 bytes: not 16-aligned
+])
+def test_tma_strides(shape, strides, want):
+    assert ops.tma_strides(shape, strides) == want
+
+
+def test_weight_map_key_holds_what_the_map_is_made_from():
+    """The cached map of w is keyed by its address, dims, strides and box,
+    and by nothing else: views with other values get other keys, the same
+    values the same key."""
+    w = torch.zeros(4, 64, 32, dtype=torch.bfloat16)
+    key = ops.weight_map_key(w)
+    assert key == (w.data_ptr(), 4, 64, 32, 2048, 32, ops.TILE_K, 64)
+    assert ops.weight_map_key(w.view(4, 64, 32)) == key
+    for other in (w[1:], w[:, :56], w[:, :, :24], w[:, ::2]):
+        assert ops.weight_map_key(other) != key

@@ -1,6 +1,9 @@
 """The port's CUDA grouped expert matmul against its plain PyTorch
-version, on the card.  These tests need a CUDA device and skip without
-one; they import no JAX, so they run on the GPU machine:
+version, on the card: the f32 kernel and both bf16 kernels (wide for
+many rows an expert, narrow for few), each case also checking which
+kernel ran and that it counted one launch.  These tests need a CUDA
+device and skip without one; they import no JAX, so they run on the GPU
+machine:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gmm_card.py
 
@@ -67,3 +70,72 @@ def test_cuda_kernel_reads_strided_expert_buffers(dtype):
     want = ops.grouped_matmul(x, w, impl="ref")
     assert got.shape == (B, E, C, F) and got.is_contiguous()
     _assert_close(got, want, dtype)
+
+
+def _run(B, E, C, D, F, w_scale, want_kernel, dtype="bfloat16"):
+    gen = _card()
+    dt = getattr(torch, dtype)
+    x = torch.randn((B, E, C, D), generator=gen, device="cuda", dtype=dt)
+    w = torch.randn((E, D, F), generator=gen, device="cuda",
+                    dtype=dt) * w_scale
+    before = ops.launches
+    got = ops.grouped_matmul(x, w)
+    torch.cuda.synchronize()
+    assert ops.launches == before + 1 and ops.last_kernel == want_kernel
+    want = ops.grouped_matmul(x, w, impl="ref")
+    assert got.shape == (B, E, C, F) and got.dtype == dt
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,kernel", [(40, "wide"), (8, "narrow")])
+def test_bf16_kernels_read_strided_expert_buffers(C, kernel):
+    """The strided (B,E,C,D) buffer in each bf16 kernel: 120 rows an
+    expert go to the wide one, 24 to the narrow one."""
+    gen = _card()
+    B, E, D, F = 3, 4, 128, 96
+    big = torch.randn((B, E + 1, C + 8, D + 16), generator=gen,
+                      device="cuda", dtype=torch.bfloat16)
+    x = big[:, 1:, 3:3 + C, 8:8 + D]
+    w = torch.randn((E, D, F), generator=gen, device="cuda",
+                    dtype=torch.bfloat16) * 0.05
+    before = ops.launches
+    got = ops.grouped_matmul(x, w)
+    assert ops.launches == before + 1 and ops.last_kernel == kernel
+    want = ops.grouped_matmul(x, w, impl="ref")
+    assert got.shape == (B, E, C, F) and got.is_contiguous()
+    _assert_close(got, want, "bfloat16")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,E,C,D,F,kernel", [
+    (3, 32, 320, 1024, 512, "wide"),     # prefill, wi (gate and up)
+    (3, 32, 320, 512, 1024, "wide"),     # prefill, wo
+    (3, 32, 8, 1024, 512, "narrow"),     # decode, wi
+    (3, 32, 8, 512, 1024, "narrow"),     # decode, wo
+])
+def test_bf16_kernels_at_granites_serving_shapes(B, E, C, D, F, kernel):
+    _run(B, E, C, D, F, D ** -0.5, kernel)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,C,kernel", [
+    (1, 64, "narrow"), (1, 72, "wide"), (8, 8, "narrow"), (3, 24, "wide")])
+def test_bf16_rows_on_each_side_of_the_narrow_limit(B, C, kernel):
+    """64 rows an expert (the narrow kernel's N at its limit) and 72."""
+    _run(B, 8, C, 1024, 512, 1024 ** -0.5, kernel)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [40, 200, 328])
+def test_bf16_wide_half_tiles_ending_inside_a_batch_row(C):
+    """The wide kernel's 64-row half-tiles never cross a batch row; with C
+    not a multiple of 64 the last one of each row is partly past C."""
+    _run(3, 4, C, 256, 384, 0.05, "wide")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 2, 3, 8])
+def test_bf16_narrow_n(B):
+    """The narrow kernel's N (an expert's rows) at 8, 16, 24 and 64."""
+    _run(B, 8, 8, 1024, 512, 1024 ** -0.5, "narrow")
