@@ -33,9 +33,11 @@ sources (one ``nvcc`` each, started together) and then:
    there, beside the card's bound (no single PyTorch call computes it);
 6. holds the RWKV6 WKV kernel against its plain version in f32 and bf16:
    the reference sweep, a nonzero bonus u, ragged lengths, an initial
-   state, decays up to the rate cap, strided views and rwkv6-7b's prefill
-   shape; then times it and the plain version there, beside the card's
-   bound (no single PyTorch call computes the recurrence);
+   state, decays up to and at the rate cap, lengths ending inside and at
+   the end of a turn of the kernel's ring of two chunks, strided views and
+   rwkv6-7b's prefill shape; then times it and the plain version there,
+   beside the card's bound (no single PyTorch call computes the
+   recurrence);
 7. serves full-width qwen3-0.6b (28 layers), granite-moe-1b-a400m (24
    layers, 32 experts top-8), zamba2-2.7b (54 Mamba2 layers and a shared
    attention block after every 6th) and rwkv6-7b (32 RWKV6 layers,
@@ -711,6 +713,18 @@ def wkv_kernel_phase(torch, wk, gen):
         # decay rates around 1.6, many at the cap of 5: k~ reaches e^80|k|
         compare(f"strong decays B2 S256 H4 P64 {short}",
                 *inputs(2, 256, 4, 64, dtype, 0.5, rate_shift=0.5))
+        # every decay at the cap
+        r, k, v, w, u = inputs(2, 200, 4, 64, dtype, 0.5)
+        compare(f"all decays at the cap B2 S200 H4 P64 {short}", r, k, v,
+                torch.full_like(w, float(torch.exp(torch.tensor(-5.0)))), u,
+                rnd((2, 4, 64, 64)))
+        # the kernel's producer warps fill a ring of two chunks ahead of
+        # its chain warps: S 40 ends inside a turn of the ring, 64 at a
+        # turn's end; P 64 is one block a head, P 128 two
+        for P in (64, 128):
+            for S in (40, 64):
+                compare(f"step edge B2 S{S} H3 P{P} {short}",
+                        *inputs(2, S, 3, P, dtype, 0.5), rnd((2, 3, P, P)))
         # r, k, v as views of one fused projection, w of a wider tensor
         B, S, H, P = 2, 300, 4, 32
         proj = rnd((B, S, 3 * H * P + 8)).to(dtype)
@@ -759,9 +773,9 @@ def wkv_timing_phase(torch, wk, gen):
     ms = device_ms(torch, rotating("auto"))
     event_ms = time_ms(torch, rotating("auto"), iters=20)
     plain_ms = device_ms(torch, rotating("ref"), 5)
-    # the first batch row alone: one block an SM instead of three.  A
-    # kernel bound by its throughput takes a third of the time; one bound
-    # by the latency of its chain of chunks about as long
+    # the first batch row alone: one block an SM, where B3 puts two on
+    # many SMs.  A kernel bound by its throughput takes a third of the
+    # time; one bound by the latency of its chain of chunks about as long
     row0 = [[t[:1] if t.dim() == 4 else t for t in s] for s in sets]
     ms_row0 = device_ms(torch, rotating("auto", row0))
     # operations of the reference algorithm at its chunk, 2 FLOP per
@@ -782,7 +796,8 @@ def wkv_timing_phase(torch, wk, gen):
           f"| bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, "
           f"{nbytes / 1e6:.2f} MB) | the same FLOP at the f64 tensor-core "
           f"rate {t_f64:.4f} ms")
-    print(f"  B1 alone ({H * P // 32} blocks, one an SM): {ms_row0:.4f} ms, "
+    print(f"  B1 alone ({H * -(-P // 64)} blocks, one an SM): "
+          f"{ms_row0:.4f} ms, "
           f"{ms_row0 / ms:.3f} of B{B}'s time")
     del sets, row0
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,

@@ -14,8 +14,9 @@
 // state[p, q] is [k_dim, v_dim]: r~ state contracts over p.
 //
 // Layout: r, k, v (B,S,H,P) in one dtype (f32 or bf16) and w (B,S,H,P)
-// f32, each with any strides on the leading dims and the last dim
-// contiguous, read in place (no copy folds (B,H) into rows); u (H,P) f32
+// f32, each with the last dim contiguous and any strides on the leading
+// dims that are multiples of 16 bytes (a base too), read in place by TMA
+// (no copy folds (B,H) into rows); u (H,P) f32
 // contiguous; init (B,H,P,P) f32 contiguous or null; y (B,S,H,P)
 // contiguous in r's dtype; the final state (B,H,P,P) f32 contiguous.
 // P is 16, 32, 64 or 128 (the wrapper checks).  S may be ragged: rows
@@ -24,374 +25,533 @@
 //
 // Arithmetic: f64, from the inputs as given to y and the state, which are
 // rounded once to f32 (and y then to r's dtype), as the plain version
-// does.  The reference computes in f32; its chunk of 16 keeps the decay
-// factors in f32's range (k~ reaches e^80 |k| at the rate cap of 5).  f64
-// is for agreement: in a bf16 model y is rounded to bf16 before the group
-// norm, and y from two f32 computations that differ in the last bit now
-// and then lands on another bf16 value; rwkv6-7b carries those flips
-// through 32 layers to 8.6% of the largest prefill logit (plain bf16 vs
-// f32: 16.7%).  Two f64 computations of y round to the same f32 value all
-// but never, so the kernel and the plain version give the same bf16
-// activations.  The products run on the f64 tensor cores (mma.m8n8k4),
-// the decays on the CUDA cores.
+// does.  The chunk stays the reference's 16 rows and its factors are
+// formed as products of the decays, so k~ stays below e^80 |k| at the
+// rate cap of 5 and no w in (0, 1) gives inf or NaN; 1 / incl of a row is
+// the reciprocal of its half-chunk's last incl times the decays after the
+// row (a reciprocal a row where that last incl falls below the clamp,
+// never at the model's rate cap).  f64 is for agreement: in a bf16 model
+// y is rounded to bf16 before the group norm, and y from two f32
+// computations that differ in the last bit now and then lands on another
+// bf16 value; rwkv6-7b carries those flips through 32 layers to 8.6% of
+// the largest prefill logit.  Two f64 computations of y, summed in any
+// order, round to the same f32 value all but never, so the kernel and the
+// plain version give the same bf16 activations (tests/test_torch_wkv.py
+// checks this kernel's order on the CPU).
 //
-// The Pallas kernel carries the state in VMEM across the grid's
-// sequential chunk axis.  Blocks on Hopper run in no order, so here one
-// block of four warps owns a (b, h, 32 columns q of v) and walks the
-// chunks in a loop.  Column q of y and of the state depends only on
-// column q of v and of the state, so splitting v's columns is exact; each
-// block recomputes the chunk's decays and scores, which all its columns
-// share.  At rwkv6-7b's prefill (B 3, H 64, P 64) that is 384 blocks on
-// 132 SMs, three an SM, all resident at once.  A chunk takes two barriers:
-//   1. decays, two threads a column (rows 0-7 and 8-15), from the
-//      registers the loads filled: prefix products joined by a shuffle;
-//      r~ and k~ into shared memory, the bonus sums r u k reduced over a
-//      warp's columns by shuffles;
-//   2. each warp: one 8 x 8 tile of the scores (masked, the bonus on the
-//      diagonal), its tiles of y = r~ state (from a shared copy of the
-//      state) and of the state update k~^T v, the state held as the
-//      accumulators of those mma for the whole sequence;
-//   3. y += scores v, stored; the new state's shared copy; the next
-//      chunk's v into the other of two buffers.
-// The next chunk's r, k, w and v are loaded into registers after the
-// decays and are in flight while the chunk computes.
+// What bounds it.  At rwkv6-7b's prefill (B 3, S 1024, H 64, P 64, bf16
+// r, k, v and y, f32 w and states) the bytes, 157.3 MB, take 0.047 ms at
+// an H100's 3.35 TB/s, and the reference algorithm's 4.03 GFLOP 0.060 ms
+// at its f64 tensor-core rate.  The kernel before this one walked a
+// (b, h, 32 columns) block's 64 chunks with every step of a chunk on one
+// chain (decays, bonus, two block barriers, scores, r~ state, the update,
+// scores v) in the Ampere shape mma.m8n8k4, which gets half the f64
+// tensor rate (tools/wkv_probe.py mma on an NVIDIA H100 80GB HBM3 at
+// 700 W: 33.5 against 66.7 TFLOP/s for m16n8k4): 0.3817 ms on that card,
+// the latency of that chain (B1 alone took 0.73 of B3's time).
 //
-// What bounds it on an H100: at that prefill shape (S 1024, bf16 r, k, v
-// and y, f32 w and states) the bytes, 157.3 MB, take 0.047 ms at
-// 3.35 TB/s; the reference algorithm's 4.03 GFLOP take 0.060 ms at the
-// f64 tensor-core rate.  What limits it is latency: 64 chunks a block in
-// order, each a chain of dependent steps (decays, shuffles, mma chains,
-// two barriers) that three blocks an SM cannot hide.  Earlier designs,
-// timed by chip_smoke.py at that shape: f32 FMAs with the state and the
-// decays in shared memory, 0.99 ms; the same in f64, 1.01 ms.  Not done
-// yet (later work): several chunks a step so that the chains overlap,
-// TMA.
+// Design.  Only the state recurrence has to run in order: with
+// U_c = k~_c^T v_c, state_{c+1} = (state_c + U_c) * incl_last_c, and the
+// decays, r~, k~, the bonus, the masked scores and U_c's factors depend
+// on no state.  The Pallas kernel carries the state in VMEM across the
+// grid's sequential chunk axis; here one block owns a (b, h) (64 columns
+// of v and of the state: the whole head at P <= 64, half of it at P 128)
+// and its two warpgroups run apart, handing chunks over through a ring of
+// two shared-memory slots on mbarriers, with no block barrier in the loop:
+//   producers (warps 0 to 3): chunk c's inputs, TMA boxes of r, k, w and
+//     v loaded three chunks ahead; the decays, one thread a (column, half
+//     of the rows), running products joined by a shuffle; r~, k~,
+//     incl_last, each 16 columns' bonus sums r u k (shuffles), v in f64;
+//     a named barrier of their own; then warps 0 and 1 the masked scores
+//     with the bonus on the diagonal (mma.m16n8k4), into slot c % 2;
+//   the chain (warps 4 to 7): each warp holds a 16-column slice of the
+//     state, transposed, as mma.m16n8k4 accumulators for the whole
+//     sequence.  Per chunk it takes y = r~ state + scores v straight from
+//     those accumulators (as the B operand, its k order permuted to their
+//     column order), then state = (state + k~^T v) * incl_last, frees the
+//     slot and stores y.
+// Each head's decays and scores are computed once.  Two blocks share an
+// SM (setmaxnreg gives the chain 144 registers a thread, the producers
+// 112): at rwkv6-7b's prefill 192 blocks on 132 SMs, 60 of which hold two.
+//
+// Times at that shape (chip_smoke.py's timing phase, cold L2, device
+// time; NVIDIA H100 80GB HBM3, 700 W): this design 0.1812 to 0.1850 ms
+// (B1 alone 0.62 to 0.63 of B3's time); the one before it 0.3817 to
+// 0.3822; f32 FMAs before that 0.99.  Parts taken out (tools/wkv_probe.py
+// variants, same card): no decays, scores or state products 0.078 ms; the
+// chain's products added back 0.155; the producers' decays and scores
+// then add the rest.  The chain's products run about at the f64 tensor
+// rate but add to, rather than overlap, the hand-offs, loads and stores
+// around them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "common/hopper.cuh"
 
 namespace {
 
 constexpr int T = 16;  // rows per chunk (the reference's CHUNK)
 constexpr unsigned FULL = 0xffffffffu;
+// columns of v and of the state a block owns: the whole head at P <= 64,
+// its decays and scores computed once (32 would make two blocks a head at
+// P 64, each computing all of them)
+constexpr int COLS = 64;
+constexpr int RING = 2;  // chunks of tiles between producers and chain
+constexpr int LEAD = 3;  // chunks of inputs loaded ahead
 
-// Block shape for head dim P: QB columns of v, NT = 128 threads (4
-// warps); CPT columns of the decays a thread computes (two threads a
-// column).  Tiles are the 8 x 8 outputs of mma.m8n8k4: YPW of y (T x QB)
-// and SPW of the state (P x QB) a warp.  Row strides of the shared tiles
-// (PS, SS, SCS doubles, VS floats; at 32 columns) are 32 bytes past a
-// multiple of 128, so a fragment's rows spread over the banks.
-template <int P>
+// Block shape for head dim P and dtype E: QB columns of v and of the
+// state; warpgroup 0 (warps 0 to 3) produces (inputs, decays, scores),
+// warps 4 .. 4 + QG - 1 of warpgroup 1 run the chain, each on 16 columns
+// of the state.  Where two blocks share an SM, setmaxnreg moves registers
+// from the producers to the chain.
+//
+// A ring slot holds f64 tiles.  Those read as an mma's A operand (two
+// doubles a lane: rows m and m + 8) are stored as pairs, so that one
+// 16-byte load fills the operand: r~ [8][PP][2] (r~[t][p] at
+// [t % 8][p][t / 8]), the scores [8][SCR][2] and v [T][VR][2] (v[t][q],
+// q = 16 g + 8 i + x, at [t][8 g + x][i]).  k~ [T][KS] is read a double a
+// lane.  Row strides (PP odd, KS = P + 4, SCR = 20, VR = 2 mod 8 pairs)
+// put the lanes of one load on different banks.
+template <typename E, int P>
 struct Cfg {
-  static constexpr int QB = P >= 32 ? 32 : P;
-  static constexpr int NT = 128;
-  static constexpr int CPT = P > NT / 2 ? P / (NT / 2) : 1;
-  static constexpr int YPW = (T / 8) * (QB / 8) / 4;
-  static constexpr int SPW = (P / 8) * (QB / 8) / 4;
-  static constexpr int PS = P + 4, SS = QB + 4, SCS = T + 4, VS = QB + 8;
-  // blocks an SM should hold at once (registers capped at 65536 / (NT *
-  // MIN_BLOCKS) a thread): at P = 64 three, 168 registers a thread; four
-  // (128) spill the prefetched chunk and wait on its loads
-  static constexpr int MIN_BLOCKS = P >= 128 ? 2 : 3;
-  // warps whose columns hold the decays (16 columns a warp and pass)
-  static constexpr int DW = P / 16 < 4 ? P / 16 : 4;
-  // f64: r~, k~ (T x PS), state (P x SS), scores (T x SCS), incl_last
-  // (P), each warp's share of the bonus sums (4 x T); f32: v, two buffers
-  // (T x VS)
-  static constexpr int BYTES =
-      (2 * T * PS + P * SS + T * SCS + P + 4 * T) * 8 + 2 * T * VS * 4;
+  static constexpr int QB = COLS < P ? COLS : P;
+  static constexpr int NP = 128, NT = 256;  // producer threads, threads
+  static constexpr int QG = QB / 16;          // chain warps
+  static constexpr int R = RING, L = LEAD;
+  static constexpr int ITEMS = 2 * P;  // (column, half of the rows) items
+  static constexpr int DI = (ITEMS + NP - 1) / NP;
+  static constexpr int PP = P + 1, KS = P + 4, SCR = T + 4, VR = QB / 2 + 2;
+  // offsets in doubles: r~ pairs, k~, score pairs, incl_last [P], each 16
+  // columns' bonus sums [P / 16][T], v pairs
+  static constexpr int KT = 16 * PP, SC = KT + T * KS, BL = SC + 16 * SCR,
+                       BO = BL + P, VO = BO + (P / 16) * T;
+  static constexpr int SLOT = ((VO + 2 * T * VR) * 8 + 127) / 128 * 128;
+  // an input slot, one TMA box each: r, k [T][P] E, w [T][P] f32, v
+  // [T][QB] E
+  static constexpr int ES = sizeof(E);
+  static constexpr int IN = T * (2 * P * ES + 4 * P + QB * ES);
+  static constexpr int BYTES = R * SLOT + L * IN + 8 * (2 * R + L);
+  static constexpr int FIT = 232448 / (BYTES + 1024);
+  static constexpr int MIN_BLOCKS = FIT >= 2 ? 2 : 1;
+  // registers a producer and a chain thread hold where two blocks share
+  // an SM (the launch gives each 65536 / (2 * 256) = 128)
+  static constexpr int PRODUCER_REGS = 112, CHAIN_REGS = 144;
 };
 
 struct Params {
-  const void* r;
-  const void* k;
-  const void* v;
-  const float* w;
+  // r, k, w (boxes of T rows by P columns) and v (T rows by QB columns)
+  // as 4-d tensor maps over (P, S, H, B)
+  CUtensorMap rmap, kmap, wmap, vmap;
   const float* u;
   const float* init;  // null: zero initial state
   void* y;
   float* state;
   int B, S, H, P;
-  long long srb, srs, srh;  // r strides in elements (P contiguous)
-  long long skb, sks, skh;  // k strides
-  long long svb, svs, svh;  // v strides
-  long long swb, sws, swh;  // w strides
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-// y rounded to f32, then to the output's dtype
-__device__ __forceinline__ void store(float* dst, double x) {
-  *dst = static_cast<float>(x);
+// two neighbouring values of y, rounded to f32 and then to y's dtype
+__device__ __forceinline__ void store2(float* dst, double a, double b) {
+  *reinterpret_cast<float2*>(dst) =
+      make_float2(static_cast<float>(a), static_cast<float>(b));
 }
-__device__ __forceinline__ void store(__nv_bfloat16* dst, double x) {
-  *dst = __float2bfloat16_rn(static_cast<float>(x));
+__device__ __forceinline__ void store2(__nv_bfloat16* dst, double a,
+                                       double b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(
+      static_cast<float>(a), static_cast<float>(b));
 }
 
-// c (8 x 8) += a (8 x 4, row) * b (4 x 8, col), f64 on the tensor cores.
-// Lane l holds a[l / 4][l % 4], b[l % 4][l / 4] and c[l / 4][2 (l % 4) + e].
-__device__ __forceinline__ void dmma(double (&c)[2], double a, double b) {
-  asm volatile(
-      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
-      "{%0,%1}, {%2}, {%3}, {%0,%1};\n"
-      : "+d"(c[0]), "+d"(c[1])
-      : "d"(a), "d"(b));
+// c (16 x 8) += a (16 x 4, row) * b (4 x 8, col), f64 on the tensor
+// cores.  Lane l holds a[l / 4][l % 4] (a0) and a[l / 4 + 8][l % 4] (a1),
+// b[l % 4][l / 4], and c[l / 4 + 8 i][2 (l % 4) + e] in c[2 i + e].
+__device__ __forceinline__ void dmma(double (&c)[4], double a0, double a1,
+                                     double b) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a0), "d"(a1), "d"(b));
+}
+
+__device__ __forceinline__ double2 ld2(const double* p) {
+  return *reinterpret_cast<const double2*>(p);
+}
+
+// An arrival that releases nothing: its thread only read what the barrier
+// guards, and its stores to y need not have landed.
+__device__ __forceinline__ void arrive_relaxed(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.relaxed.cta.shared::cta.b64 _, [%0];\n" ::"r"(
+                   hopper::smem_addr(bar))
+               : "memory");
 }
 
 template <typename E, int P>
-__global__ void __launch_bounds__(Cfg<P>::NT, Cfg<P>::MIN_BLOCKS)
-    wkv_kernel(const Params p) {
-  constexpr int QB = Cfg<P>::QB, NT = Cfg<P>::NT, CPT = Cfg<P>::CPT;
-  constexpr int YPW = Cfg<P>::YPW, SPW = Cfg<P>::SPW;
-  constexpr int PS = Cfg<P>::PS, SS = Cfg<P>::SS, SCS = Cfg<P>::SCS;
-  constexpr int VS = Cfg<P>::VS;
-  constexpr int H8 = T / 2;        // rows of a column a thread decays
-  constexpr int LV = T * QB / NT;  // v elements a thread loads
-  constexpr int QT = QB / 8;       // tiles across the columns
-  static_assert(T * QB % NT == 0 && CPT * NT / 2 >= P && YPW >= 1 &&
-                    SPW >= 1 && (T / 8) * (T / 8) == NT / 32,
-                "tile split");
+__global__ void __launch_bounds__(Cfg<E, P>::NT, Cfg<E, P>::MIN_BLOCKS)
+    wkv_kernel(const __grid_constant__ Params p) {
+  using C = Cfg<E, P>;
+  constexpr int QB = C::QB, QG = C::QG, R = C::R, L = C::L, NP = C::NP;
+  constexpr int PP = C::PP, KS = C::KS, SCR = C::SCR, VR = C::VR;
+  constexpr int ES = C::ES;
+  constexpr int H8 = T / 2;  // rows of a column a decay item covers
+  static_assert(C::ITEMS % 32 == 0, "whole warps an item");
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  double* rt = reinterpret_cast<double*>(smem);  // [T][PS] r~
-  double* kt = rt + T * PS;                      // [T][PS] k~
-  double* sm = kt + T * PS;      // [P][SS] state before this chunk
-  double* sc = sm + P * SS;      // [T][SCS] scores, bonus on the diagonal
-  double* blast = sc + T * SCS;  // [P] incl_last
-  double* bonus = blast + P;     // [4][T] each warp's sum_p r u k
-  float* vbuf = reinterpret_cast<float*>(bonus + 4 * T);  // [2][T][VS] v
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* slots = smem;                  // R ring slots
+  unsigned char* inputs = slots + R * C::SLOT;  // L input slots
+  uint64_t* full = reinterpret_cast<uint64_t*>(inputs + L * C::IN);
+  uint64_t* empty = full + R;    // [R] a slot read by every chain warp
+  uint64_t* landed = empty + R;  // [L] an input slot loaded
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gid = lane >> 2, tig = lane & 3;  // fragment row, column
-  const int half = tid & 1;  // decay rows half*8 .. half*8 + 7
-  const int q0 = blockIdx.x * QB, h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * QB;  // the block's columns of v
   const int nc = (p.S + T - 1) / T;
-  const E* rg = static_cast<const E*>(p.r) + b * p.srb + h * p.srh;
-  const E* kg = static_cast<const E*>(p.k) + b * p.skb + h * p.skh;
-  const E* vg = static_cast<const E*>(p.v) + b * p.svb + h * p.svh + q0;
-  const float* wg = p.w + b * p.swb + h * p.swh;
-  E* yg = static_cast<E*>(p.y);
 
-  // Chunk c into registers, as the decays use it: r, k, w of rows
-  // half*8 .. half*8 + 7 of columns tid/2 + NT/2 * cc; and v, element
-  // tid + NT * a (row e / QB, column e % QB).  Rows past S as w = 1,
-  // r = k = v = 0.
-  float pr[CPT][H8], pk[CPT][H8], pw[CPT][H8], pv[LV];
-  auto load = [&](int c) {
-    const int s0 = c * T + half * H8;
-#pragma unroll
-    for (int cc = 0; cc < CPT; ++cc) {
-      const int col = (tid >> 1) + (NT / 2) * cc;
-      if (col >= P) continue;
-#pragma unroll
-      for (int s = 0; s < H8; ++s) {
-        const bool ok = s0 + s < p.S;
-        const long long row = s0 + s;
-        pr[cc][s] = ok ? to_f32(rg[row * p.srs + col]) : 0.f;
-        pk[cc][s] = ok ? to_f32(kg[row * p.sks + col]) : 0.f;
-        pw[cc][s] = ok ? wg[row * p.sws + col] : 1.f;
-      }
+  if (tid == 0) {
+    for (int s = 0; s < R; ++s) {
+      hopper::mbar_init(&full[s], NP / 32);
+      hopper::mbar_init(&empty[s], QG);
     }
-#pragma unroll
-    for (int a = 0; a < LV; ++a) {
-      const int e = tid + NT * a, s = c * T + e / QB;
-      pv[a] = s < p.S ? to_f32(vg[s * p.svs + e % QB]) : 0.f;
-    }
-  };
-  auto put_v = [&](float* vs) {
-#pragma unroll
-    for (int a = 0; a < LV; ++a) {
-      const int e = tid + NT * a;
-      vs[(e / QB) * VS + e % QB] = pv[a];
-    }
-  };
-
-  double up[CPT];  // the bonus u of this thread's decay columns
-#pragma unroll
-  for (int cc = 0; cc < CPT; ++cc) {
-    const int col = (tid >> 1) + (NT / 2) * cc;
-    up[cc] = col < P ? p.u[h * P + col] : 0.0;
+    for (int s = 0; s < L; ++s) hopper::mbar_init(&landed[s], 1);
+    hopper::fence_barrier_init();
   }
-  // The state, as the accumulators of this warp's SPW tiles: tile t =
-  // warp * SPW + ss covers rows 8 (t / QT) .. and columns 8 (t % QT) ..;
-  // lane holds [8 (t / QT) + gid][8 (t % QT) + 2 tig + e].  A copy in
-  // shared memory feeds r~ state.
-  const long long st_base =
-      (static_cast<long long>(b) * p.H + h) * P * P + q0;
-  double sacc[SPW][2];
-#pragma unroll
-  for (int ss = 0; ss < SPW; ++ss) {
-    const int t = warp * SPW + ss, pr0 = 8 * (t / QT) + gid;
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int qc = 8 * (t % QT) + 2 * tig + e;
-      sacc[ss][e] = p.init ? p.init[st_base + pr0 * P + qc] : 0.0;
-      sm[pr0 * SS + qc] = sacc[ss][e];
-    }
+  __syncthreads();
+
+  if constexpr (C::MIN_BLOCKS == 2) {
+    if (warp < 4)
+      hopper::regs_dealloc<C::PRODUCER_REGS>();
+    else
+      hopper::regs_alloc<C::CHAIN_REGS>();
   }
-  load(0);
-  put_v(vbuf);
 
-  for (int c = 0; c < nc; ++c) {
-    float* vs = vbuf + (c & 1) * T * VS;
-    // Decays of this thread's rows and columns, from registers; the two
-    // halves of a column joined by a shuffle (whole warps take part or
-    // sit out together): r~, k~ and incl_last; and the bonus terms
-    // r u k, summed over the warp's columns by shuffles.
-    double ruk[H8];
+  if (warp < 4) {
+    // ---------------------------------------------------------------
+    // Producers.  Chunk c: its inputs landed (loaded LEAD chunks ahead);
+    // its ring slot read by every chain warp; the decays of all P
+    // columns and v into the slot; then warps 0 and 1 the scores.
+    // ---------------------------------------------------------------
+    // chunk c into input slot c % L by TMA (rows past S read as zeros),
+    // by lane 0 of warp 2 (warps 0 and 1 run more of the score work)
+    auto issue = [&](int c) {
+      unsigned char* in = inputs + (c % L) * C::IN;
+      uint64_t* bar = &landed[c % L];
+      hopper::mbar_arrive_expect_tx(bar, C::IN);
+      hopper::tma_load_4d(in, &p.rmap, bar, 0, c * T, h, b);
+      hopper::tma_load_4d(in + T * P * ES, &p.kmap, bar, 0, c * T, h, b);
+      hopper::tma_load_4d(in + 2 * T * P * ES, &p.wmap, bar, 0, c * T, h,
+                          b);
+      hopper::tma_load_4d(in + T * P * (2 * ES + 4), &p.vmap, bar, q0,
+                          c * T, h, b);
+    };
+    double up[C::DI];  // the bonus u of each item's column
 #pragma unroll
-    for (int s = 0; s < H8; ++s) ruk[s] = 0.0;
-#pragma unroll
-    for (int cc = 0; cc < CPT; ++cc) {
-      const int col = (tid >> 1) + (NT / 2) * cc;
-      if (col >= P) continue;
-      double pre[H8];  // products of this thread's decays up to row s
-      double prod = 1.0;
-#pragma unroll
-      for (int s = 0; s < H8; ++s) {
-        prod *= fmax(static_cast<double>(pw[cc][s]), 1e-8);
-        pre[s] = prod;
-      }
-      const double other = __shfl_xor_sync(FULL, prod, 1);
-      const double base = half ? other : 1.0;  // decay of the rows before
-#pragma unroll
-      for (int s = 0; s < H8; ++s) {
-        const int idx = (half * H8 + s) * PS + col;
-        const double rv = pr[cc][s], kv = pk[cc][s];
-        rt[idx] = rv * (s ? base * pre[s - 1] : base);
-        kt[idx] = kv / fmax(base * pre[s], 1e-37);
-        ruk[s] += rv * up[cc] * kv;
-      }
-      if (half) blast[col] = base * pre[H8 - 1];
+    for (int d = 0; d < C::DI; ++d) {
+      const int it = tid + NP * d;
+      up[d] = it < C::ITEMS ? p.u[h * P + (it >> 5) * 16 + (it & 15)] : 0.0;
     }
-    if (warp < Cfg<P>::DW) {
-#pragma unroll
-      for (int s = 0; s < H8; ++s) {
-#pragma unroll
-        for (int o = 2; o < 32; o <<= 1)
-          ruk[s] += __shfl_xor_sync(FULL, ruk[s], o);
-      }
-      if (lane < 2) {
-#pragma unroll
-        for (int s = 0; s < H8; ++s)
-          bonus[warp * T + half * H8 + s] = ruk[s];
-      }
-    }
-    if (c + 1 < nc) load(c + 1);  // in flight while this chunk computes
-    // The tiles, this chunk's v and the state before it are written.
-    __syncthreads();
+    const bool issuer = warp == 2 && lane == 0;
+    if (issuer)
+      for (int c = 0; c < min(L, nc); ++c) issue(c);
 
-    // Scores, tile (warp / 2, warp % 2) of T x T: r~ k~^T strictly below
-    // the diagonal, the bonus sum_p r u k on it, zero above.  Two
-    // accumulators halve the chain of dependent mma.
-    {
-      const int mt = warp >> 1, nt = warp & 1;
-      double acc[2][2] = {{0.0, 0.0}, {0.0, 0.0}};
-#pragma unroll 4
-      for (int kk = 0; kk < P; kk += 8) {
-        dmma(acc[0], rt[(8 * mt + gid) * PS + kk + tig],
-             kt[(8 * nt + gid) * PS + kk + tig]);
-        dmma(acc[1], rt[(8 * mt + gid) * PS + kk + 4 + tig],
-             kt[(8 * nt + gid) * PS + kk + 4 + tig]);
-      }
-      const int i = 8 * mt + gid;
+    for (int c = 0; c < nc; ++c) {
+      const int s = c % R;
+      double* so = reinterpret_cast<double*>(slots + s * C::SLOT);
+      const unsigned char* in = inputs + (c % L) * C::IN;
+      const E* ir = reinterpret_cast<const E*>(in);
+      const E* ik = ir + T * P;
+      const float* iw = reinterpret_cast<const float*>(ik + T * P);
+      const E* iv = reinterpret_cast<const E*>(iw + T * P);
+      const int n = min(T, p.S - c * T);  // rows below S
+      hopper::mbar_wait(&landed[c % L], (c / L) & 1);
+
+      // This thread's inputs and v, read into registers before any store
+      // to the slot (so the reads need not wait for the stores).  Rows
+      // past S as w = 1, r = k = v = 0.  Item it = tid + NP d is column
+      // 16 (it / 32) + it % 16, rows half 8 .. + 8 (half = lane / 16), so
+      // each half-warp reads and writes 16 neighbouring columns of a row.
+      const int half = lane >> 4;
+      float xw[C::DI][H8], xr[C::DI][H8], xk[C::DI][H8];
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int j = 8 * nt + 2 * tig + e;
-        double sv = j < i ? acc[0][e] + acc[1][e] : 0.0;
-        if (j == i) {
-          sv = 0.0;
+      for (int d = 0; d < C::DI; ++d) {
+        const int col = ((tid + NP * d) >> 5) * 16 + (lane & 15);
 #pragma unroll
-          for (int ww = 0; ww < Cfg<P>::DW; ++ww) sv += bonus[ww * T + i];
+        for (int s8 = 0; s8 < H8; ++s8) {
+          const int t = half * H8 + s8;
+          const bool ok = t < n && (C::ITEMS % NP == 0 || tid + NP * d <
+                                                              C::ITEMS);
+          xw[d][s8] = ok ? iw[t * P + col] : 1.f;
+          xr[d][s8] = ok ? to_f32(ir[t * P + col]) : 0.f;
+          xk[d][s8] = ok ? to_f32(ik[t * P + col]) : 0.f;
         }
-        sc[i * SCS + j] = sv;
+      }
+      constexpr int VT = (T * QB + NP - 1) / NP;
+      float xv[VT];
+#pragma unroll
+      for (int a = 0; a < VT; ++a) {
+        const int e = tid + NP * a;
+        xv[a] = e < T * QB && e / QB < n ? to_f32(iv[e]) : 0.f;
+      }
+      // the slot read by every chain warp (chunk c - R)
+      if (c >= R) hopper::mbar_wait(&empty[s], ((c / R) - 1) & 1);
+
+      // Decays of this thread's items, all items in step so that their
+      // chains overlap: prefix products over each item's 8 rows, the two
+      // halves of a column joined by a shuffle; 1 / incl of each row as
+      // one reciprocal, of the last row's, times the decays after the row
+      // (where incl falls below the clamp, never at the model's rate cap
+      // of 5, one reciprocal a row); r~, k~ and incl_last; the bonus
+      // terms r u k summed over each warp's 16 columns by recursive
+      // halving (lane bits 3, 2, 1 pick the row a lane keeps, bit 0 the
+      // last exchange).
+      double wd[C::DI][H8], pre[C::DI][H8], base[C::DI];
+#pragma unroll
+      for (int d = 0; d < C::DI; ++d)
+#pragma unroll
+        for (int s8 = 0; s8 < H8; ++s8)
+          // max(w, 1e-8) in f64, compared in f32: an f32 above 1e-8f is
+          // above 1e-8, one at or below it is below
+          wd[d][s8] = xw[d][s8] > 1e-8f ? static_cast<double>(xw[d][s8])
+                                        : 1e-8;
+#pragma unroll
+      for (int d = 0; d < C::DI; ++d) {
+        double prod = 1.0;
+#pragma unroll
+        for (int s8 = 0; s8 < H8; ++s8) {
+          prod *= wd[d][s8];
+          pre[d][s8] = prod;
+        }
+      }
+      double inv[C::DI][H8];  // 1 / incl of each row
+#pragma unroll
+      for (int d = 0; d < C::DI; ++d) {
+        const double other = __shfl_xor_sync(FULL, pre[d][H8 - 1], 16);
+        base[d] = half ? other : 1.0;  // the decay of the rows before
+      }
+#pragma unroll
+      for (int d = 0; d < C::DI; ++d) {
+        const double last = base[d] * pre[d][H8 - 1];
+        if (last >= 1e-37) {
+          double x = __drcp_rn(last);
+#pragma unroll
+          for (int s8 = H8 - 1; s8 >= 0; --s8) {
+            inv[d][s8] = x;
+            x *= wd[d][s8];
+          }
+        } else {
+#pragma unroll
+          for (int s8 = 0; s8 < H8; ++s8)
+            inv[d][s8] = __drcp_rn(fmax(base[d] * pre[d][s8], 1e-37));
+        }
+      }
+      const bool b3 = lane & 8, b2 = lane & 4, b1 = lane & 2;
+#pragma unroll
+      for (int d = 0; d < C::DI; ++d) {
+        const int it = tid + NP * d, col = (it >> 5) * 16 + (lane & 15);
+        const bool active = C::ITEMS % NP == 0 || it < C::ITEMS;
+        double ruk[H8];
+#pragma unroll
+        for (int s8 = 0; s8 < H8; ++s8) {
+          const int t = half * H8 + s8;
+          const double rv = xr[d][s8], kv = xk[d][s8];
+          if (active) {
+            so[2 * (s8 * PP + col) + half] =
+                rv * (s8 ? base[d] * pre[d][s8 - 1] : base[d]);
+            so[C::KT + t * KS + col] = kv * inv[d][s8];
+          }
+          ruk[s8] = rv * up[d] * kv;
+        }
+        if (active && half) so[C::BL + col] = base[d] * pre[d][H8 - 1];
+        double r4[4], r2[2];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          r4[i] = (b3 ? ruk[i + 4] : ruk[i]) +
+                  __shfl_xor_sync(FULL, b3 ? ruk[i] : ruk[i + 4], 8);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          r2[i] = (b2 ? r4[i + 2] : r4[i]) +
+                  __shfl_xor_sync(FULL, b2 ? r4[i] : r4[i + 2], 4);
+        double r1 = (b1 ? r2[1] : r2[0]) +
+                    __shfl_xor_sync(FULL, b1 ? r2[0] : r2[1], 2);
+        r1 += __shfl_xor_sync(FULL, r1, 1);
+        if (active && !(lane & 1))
+          so[C::BO + (col / 16) * T + half * H8 + 4 * b3 + 2 * b2 + b1] = r1;
+      }
+      // v into the slot, f64 pairs
+#pragma unroll
+      for (int a = 0; a < VT; ++a) {
+        const int e = tid + NP * a, q = e % QB;
+        if (e < T * QB)
+          so[C::VO + 2 * ((e / QB) * VR + (q >> 4) * 8 + (q & 7)) +
+             ((q >> 3) & 1)] = static_cast<double>(xv[a]);
+      }
+      // every producer warp is done with input slot c % L (chunk c + L
+      // may land there) and has written the decays the scores read
+      asm volatile("bar.sync 1, %0;\n" ::"n"(NP) : "memory");
+      if (issuer && c + L < nc) issue(c + L);
+
+      // Score job of warps 0 and 1: columns j = 8 warp .. + 8 of r~ k~^T
+      // over all of p (k-step (n, e) takes p = 8 n + 2 tig + e, the
+      // chain's order), strictly below the diagonal, the bonus on it,
+      // zero above.  Four accumulators shorten the chain of products.
+      // Warps 2 and 3 have nothing more to write.
+      if (warp < 2) {
+        const double* kt = so + C::KT;
+        const int j0 = 8 * warp;
+        double acc[4][4] = {};
+#pragma unroll
+        for (int n = 0; n < P / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const double2 a = ld2(so + 2 * (gid * PP + 8 * n + 2 * tig + e));
+            dmma(acc[(2 * n + e) & 3], a.x, a.y,
+                 kt[(j0 + gid) * KS + 8 * n + 2 * tig + e]);
+          }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = gid + 8 * (e >> 1), j = j0 + 2 * tig + (e & 1);
+          double sc = j < i ? (acc[0][e] + acc[1][e]) + (acc[2][e] + acc[3][e])
+                            : 0.0;
+          if (j == i) {
+#pragma unroll
+            for (int ww = 0; ww < P / 16; ++ww) sc += so[C::BO + ww * T + i];
+          }
+          so[C::SC + 2 * (gid * SCR + j) + (e >> 1)] = sc;
+        }
+      }
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&full[s]);
+    }
+  } else if (warp - 4 < QG) {
+    // ---------------------------------------------------------------
+    // The chain.  This warp holds S^T[q][p] for its 16 columns q =
+    // q0 + 16 qg .. + 16 and all P rows p, tile n (8 rows p) as the
+    // accumulators of an m16n8 mma: lane holds S^T[16 qg + gid + 8 i]
+    // [8 n + 2 tig + e] in st[n][2 i + e].  Per chunk: y = r~ state (the
+    // state as it lies as the B operand, the k order permuted to its
+    // columns: k-step (n, e) takes p = 8 n + 2 tig + e) + scores v; then
+    // state = (state + k~^T v) * incl_last.
+    // ---------------------------------------------------------------
+    const int qg = warp - 4;
+    const long long st_base = (static_cast<long long>(b) * p.H + h) * P * P;
+    double st[P / 8][4];
+#pragma unroll
+    for (int n = 0; n < P / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int pp = 8 * n + 2 * tig + (e & 1);
+        const int qq = q0 + 16 * qg + gid + 8 * (e >> 1);
+        st[n][e] = p.init ? p.init[st_base + pp * P + qq] : 0.0;
+      }
+    E* yg = static_cast<E*>(p.y) + h * P + q0 + 16 * qg + 2 * tig;
+    for (int c = 0; c < nc; ++c) {
+      const int s = c % R;
+      hopper::mbar_wait(&full[s], (c / R) & 1);
+      const double* rt =
+          reinterpret_cast<const double*>(slots + s * C::SLOT);
+      const double* kt = rt + C::KT;
+      const double* sc = rt + C::SC;
+      const double* bl = rt + C::BL;
+      // v[4 j + tig][16 qg + 8 i + gid]: va[j].x (i = 0) and .y (i = 1)
+      double2 va[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        va[j] = ld2(rt + C::VO + 2 * ((4 * j + tig) * VR + 8 * qg + gid));
+      // y tiles i (8 columns q = 16 qg + 8 i + ..), two accumulators each
+      double y[2][2][4] = {};
+#pragma unroll
+      for (int n = 0; n < P / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const double2 a = ld2(rt + 2 * (gid * PP + 8 * n + 2 * tig + e));
+          dmma(y[0][n & 1], a.x, a.y, st[n][e]);
+          dmma(y[1][n & 1], a.x, a.y, st[n][2 + e]);
+        }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const double2 a = ld2(sc + 2 * (gid * SCR + 4 * j + tig));
+        dmma(y[0][j & 1], a.x, a.y, va[j].x);
+        dmma(y[1][j & 1], a.x, a.y, va[j].y);
+      }
+      // state = (state + k~^T v) * incl_last: m = q, n = p, k = t
+#pragma unroll
+      for (int n = 0; n < P / 8; ++n) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          dmma(st[n], va[j].x, va[j].y,
+               kt[(4 * j + tig) * KS + 8 * n + gid]);
+        const double2 dd = ld2(bl + 8 * n + 2 * tig);
+        st[n][0] *= dd.x;
+        st[n][1] *= dd.y;
+        st[n][2] *= dd.x;
+        st[n][3] *= dd.y;
+      }
+      __syncwarp();
+      if (lane == 0) arrive_relaxed(&empty[s]);
+      // y, two neighbouring columns a store, rows below S
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const int row = c * T + gid + 4 * e;
+        if (row < p.S) {
+          E* dst = yg + (static_cast<long long>(b) * p.S + row) * p.H * P;
+          store2(dst, y[0][0][e] + y[0][1][e],
+                 y[0][0][e + 1] + y[0][1][e + 1]);
+          store2(dst + 8, y[1][0][e] + y[1][1][e],
+                 y[1][0][e + 1] + y[1][1][e + 1]);
+        }
       }
     }
-
-    // y = r~ state (this warp's YPW tiles of T x QB; the scores' part
-    // waits for the barrier), two accumulators a tile
-    double yacc[YPW][2];
 #pragma unroll
-    for (int yy = 0; yy < YPW; ++yy) {
-      const int t = warp * YPW + yy, mt = t / QT, nt = t % QT;
-      double odd[2] = {0.0, 0.0};
-      yacc[yy][0] = yacc[yy][1] = 0.0;
-#pragma unroll 4
-      for (int kk = 0; kk < P; kk += 8) {
-        dmma(yacc[yy], rt[(8 * mt + gid) * PS + kk + tig],
-             sm[(kk + tig) * SS + 8 * nt + gid]);
-        dmma(odd, rt[(8 * mt + gid) * PS + kk + 4 + tig],
-             sm[(kk + 4 + tig) * SS + 8 * nt + gid]);
+    for (int n = 0; n < P / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int pp = 8 * n + 2 * tig + (e & 1);
+        const int qq = q0 + 16 * qg + gid + 8 * (e >> 1);
+        p.state[st_base + pp * P + qq] = static_cast<float>(st[n][e]);
       }
-      yacc[yy][0] += odd[0];
-      yacc[yy][1] += odd[1];
-    }
-
-    // state = (state + k~^T v) * incl_last, in the accumulators
-#pragma unroll
-    for (int ss = 0; ss < SPW; ++ss) {
-      const int t = warp * SPW + ss, mt = t / QT, nt = t % QT;
-#pragma unroll
-      for (int kk = 0; kk < T; kk += 4)
-        dmma(sacc[ss], kt[(kk + tig) * PS + 8 * mt + gid],
-             static_cast<double>(vs[(kk + tig) * VS + 8 * nt + gid]));
-      const double d = blast[8 * mt + gid];
-      sacc[ss][0] *= d;
-      sacc[ss][1] *= d;
-    }
-    // The scores are written; the tiles and the state copy are read.
-    __syncthreads();
-
-    // y += scores v; store y and the new state's copy
-    const int s0 = c * T;
-#pragma unroll
-    for (int yy = 0; yy < YPW; ++yy) {
-      const int t = warp * YPW + yy, mt = t / QT, nt = t % QT;
-#pragma unroll
-      for (int kk = 0; kk < T; kk += 4)
-        dmma(yacc[yy], sc[(8 * mt + gid) * SCS + kk + tig],
-             static_cast<double>(vs[(kk + tig) * VS + 8 * nt + gid]));
-      const int i = 8 * mt + gid;
-      if (s0 + i < p.S) {
-        E* yrow = yg + ((static_cast<long long>(b) * p.S + s0 + i) * p.H +
-                        h) * P + q0 + 8 * nt + 2 * tig;
-        store(yrow, yacc[yy][0]);
-        store(yrow + 1, yacc[yy][1]);
-      }
-    }
-#pragma unroll
-    for (int ss = 0; ss < SPW; ++ss) {
-      const int t = warp * SPW + ss;
-      const int idx = (8 * (t / QT) + gid) * SS + 8 * (t % QT) + 2 * tig;
-      sm[idx] = sacc[ss][0];
-      sm[idx + 1] = sacc[ss][1];
-    }
-    // The next chunk's v into the other buffer, last read two barriers
-    // ago.  The next chunk's decays write only tiles this chunk read
-    // before the barrier; its scores wait for its first barrier.
-    if (c + 1 < nc) put_v(vbuf + ((c + 1) & 1) * T * VS);
   }
-#pragma unroll
-  for (int ss = 0; ss < SPW; ++ss) {
-    const int t = warp * SPW + ss, pr0 = 8 * (t / QT) + gid;
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-      p.state[st_base + pr0 * P + 8 * (t % QT) + 2 * tig + e] =
-          static_cast<float>(sacc[ss][e]);
-  }
+}
+
+// A tensor map over (P, S, H, B) of `base` (strides in elements), read in
+// boxes of `cols` columns by T rows; rows past S read as zeros.
+bool encode_rows(CUtensorMap* map, const void* base, bool bf16, int P,
+                 int S, int H, int B, long long ss, long long sh,
+                 long long sb, int cols) {
+  const hopper::EncodeTiledFn fn = hopper::encode_tiled();
+  if (fn == nullptr) return false;
+  const int es = bf16 ? 2 : 4;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(P),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss * es),
+                                 static_cast<cuuint64_t>(sh * es),
+                                 static_cast<cuuint64_t>(sb * es)};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), T, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map,
+            bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+            4, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <typename E, int P>
 cudaError_t launch_p(const Params& p, cudaStream_t stream) {
+  using C = Cfg<E, P>;
   auto kernel = wkv_kernel<E, P>;
-  const int bytes = Cfg<P>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
   if (err != cudaSuccess) return err;
-  const dim3 grid(P / Cfg<P>::QB, p.H, p.B);
-  kernel<<<grid, Cfg<P>::NT, bytes, stream>>>(p);
+  const dim3 grid(P / C::QB, p.H, p.B);
+  kernel<<<grid, C::NT, C::BYTES, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -414,9 +574,11 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  Returns a cudaError_t (0 = the
-// launch was accepted); `dtype` is 0 for float32, 1 for bfloat16 (r, k, v
-// and y; w, u and the states are f32).  `init` may be null (zero state).
-// The caller has checked shapes, strides and dtypes.
+// launch was accepted), or -1 if cuTensorMapEncodeTiled refused a tensor
+// map; `dtype` is 0 for float32, 1 for bfloat16 (r, k, v and y; w, u and
+// the states are f32).  `init` may be null (zero state).  The caller has
+// checked shapes, dtypes and strides (the last dim contiguous, the others
+// and the bases multiples of 16 bytes).
 extern "C" int rwkv6_wkv(const void* r, const void* k, const void* v,
                          const float* w, const float* u, const float* init,
                          void* y, float* state, int B, int S, int H, int P,
@@ -425,11 +587,16 @@ extern "C" int rwkv6_wkv(const void* r, const void* k, const void* v,
                          long long svb, long long svs, long long svh,
                          long long swb, long long sws, long long swh,
                          int dtype, void* stream) {
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  if (P != 16 && P != 32 && P != 64 && P != 128) return cudaErrorInvalidValue;
+  const bool bf16 = dtype == 1;
+  const int qb = COLS < P ? COLS : P;
   Params p;
-  p.r = r;
-  p.k = k;
-  p.v = v;
-  p.w = w;
+  if (!encode_rows(&p.rmap, r, bf16, P, S, H, B, srs, srh, srb, P) ||
+      !encode_rows(&p.kmap, k, bf16, P, S, H, B, sks, skh, skb, P) ||
+      !encode_rows(&p.wmap, w, false, P, S, H, B, sws, swh, swb, P) ||
+      !encode_rows(&p.vmap, v, bf16, P, S, H, B, svs, svh, svb, qb))
+    return -1;
   p.u = u;
   p.init = init;
   p.y = y;
@@ -438,22 +605,8 @@ extern "C" int rwkv6_wkv(const void* r, const void* k, const void* v,
   p.S = S;
   p.H = H;
   p.P = P;
-  p.srb = srb;
-  p.srs = srs;
-  p.srh = srh;
-  p.skb = skb;
-  p.sks = sks;
-  p.skh = skh;
-  p.svb = svb;
-  p.svs = svs;
-  p.svh = svh;
-  p.swb = swb;
-  p.sws = sws;
-  p.swh = swh;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(p, st);
-  if (dtype == 1) return launch<__nv_bfloat16>(p, st);
-  return cudaErrorInvalidValue;
+  return bf16 ? launch<__nv_bfloat16>(p, st) : launch<float>(p, st);
 }
 
 extern "C" const char* rwkv6_wkv_error_string(int err) {

@@ -2,7 +2,9 @@
 version.
 
 A CPU tensor goes to the plain version (``ref.wkv_ref``).  A CUDA tensor
-launches the kernel in ``csrc/wkv.cu`` or raises: there is no fallback.
+launches the kernel in ``csrc/wkv.cu`` or raises: there is no fallback
+(the kernel reads r, k, v and w by TMA, so a view whose base or leading
+strides are not multiples of 16 bytes is refused).
 ``impl="ref"`` asks for the plain version explicitly, for the tests and
 for comparing the kernel with it on the card.
 
@@ -50,6 +52,25 @@ def build() -> None:
     _kernel()
 
 
+def tma_strides(t: torch.Tensor) -> Optional[Tuple[int, int, int]]:
+    """The (B, S, H) strides, in elements, by which the kernel's tensor maps
+    read the 4-d ``t`` in place, or None where TMA cannot: a base or a
+    stride that is not a multiple of 16 bytes, or a zero stride.  A dim of
+    size 1 is never stepped along, so its stride is replaced by the one a
+    contiguous tensor would have there."""
+    if t.data_ptr() % 16:
+        return None
+    size = t.element_size()
+    out, inner = [0, 0, 0], t.shape[3]
+    for dim in (2, 1, 0):
+        stride = t.stride(dim) if t.shape[dim] > 1 else inner
+        if stride <= 0 or stride * size % 16 or stride * size >= 1 << 40:
+            return None
+        out[dim] = stride
+        inner *= t.shape[dim]
+    return out[0], out[1], out[2]
+
+
 def _check(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            w: torch.Tensor, u: torch.Tensor,
            init_state: Optional[torch.Tensor]) -> None:
@@ -80,6 +101,13 @@ def _check(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("w, u and init_state must be float32")
     if any(t.stride(-1) != 1 for t in (r, k, v, w)):
         raise ValueError("the last dim of r, k, v and w must be contiguous")
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
+        if tma_strides(t) is None:
+            raise ValueError(
+                f"{name}: the kernel reads it by TMA, which needs the base "
+                f"and the strides of the leading dims in multiples of 16 "
+                f"bytes (strides {tuple(t.stride())}, {t.element_size()}"
+                "-byte elements)")
     tensors = (r, k, v, w, u) + (() if init_state is None
                                  else (init_state,))
     if r.device.type != "cuda" or any(t.device != r.device
@@ -103,8 +131,11 @@ def _launch(r, k, v, w, u, init_state):
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), None if init is None else init.data_ptr(),
             y.data_ptr(), state.data_ptr(), Bb, S, H, P,
-            *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *w.stride()[:3], _DTYPES[r.dtype], stream)
+            *tma_strides(r), *tma_strides(k), *tma_strides(v),
+            *tma_strides(w), _DTYPES[r.dtype], stream)
+    if err == -1:
+        raise RuntimeError("rwkv6_wkv: cuTensorMapEncodeTiled refused a "
+                           "tensor map of r, k, v or w")
     if err:
         raise RuntimeError("rwkv6_wkv launch failed: "
                            f"{lib.rwkv6_wkv_error_string(err).decode()}")

@@ -88,3 +88,52 @@ def test_cuda_kernel_reads_strided_views(dtype):
     assert not r.is_contiguous() and not w.is_contiguous()
     _compare(r, k, v, w, u,
              torch.randn((B, H, P, P), generator=gen, device="cuda"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [40, 48, 64, 96])
+@pytest.mark.parametrize("P", [16, 64, 128])
+def test_cuda_kernel_sequence_ends_inside_and_at_a_step(dtype, S, P):
+    """The kernel's producer warps fill a ring of two chunks of 16 rows
+    ahead of its chain warps (a step of the ring is two chunks): S 40
+    ends inside a chunk and 48 at a chunk's end, both inside a step; 64
+    and 96 end exactly at a step's end.  P 16, 64 (one block a head) and
+    128 (two), an initial state."""
+    gen = _card()
+    B, H = 2, 3
+    r, k, v, w, u = _inputs(gen, B, S, H, P, getattr(torch, dtype), 0.5)
+    _compare(r, k, v, w, u,
+             torch.randn((B, H, P, P), generator=gen, device="cuda"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_at_rwkv6_7b_prefill_shape(dtype):
+    """rwkv6-7b's prefill WKV serving 3 slots, B3 S1024 H64 P64, with the
+    cache's initial state."""
+    gen = _card()
+    B, S, H, P = 3, 1024, 64, 64
+    r, k, v, w, u = _inputs(gen, B, S, H, P, getattr(torch, dtype), 0.5)
+    _compare(r, k, v, w, u,
+             torch.randn((B, H, P, P), generator=gen, device="cuda"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("P", [16, 64, 128])
+@pytest.mark.parametrize("all_at_cap", [False, True])
+def test_cuda_kernel_decays_at_the_rate_cap(dtype, P, all_at_cap):
+    """Decay rates log-normal around 4.5 and capped at 5, as the model caps
+    them (about half at the cap), or every one at the cap: k~ reaches
+    e^80 |k| at a chunk's last row."""
+    gen = _card()
+    B, S, H = 2, 200, 2
+    r, k, v, _, u = _inputs(gen, B, S, H, P, getattr(torch, dtype), 0.5)
+    rate = torch.exp(torch.randn((B, S, H, P), generator=gen, device="cuda")
+                     * 0.5 + 1.5)
+    if all_at_cap:
+        rate = torch.full_like(rate, 5.0)
+    w = torch.exp(-torch.clamp(rate, max=5.0))
+    _compare(r, k, v, w, u,
+             torch.randn((B, H, P, P), generator=gen, device="cuda"))
