@@ -29,8 +29,10 @@ sources (one ``nvcc`` each, started together) and then:
    ``torch.bmm`` (a yardstick only) and the card's bound;
 5. holds the Mamba2 SSD scan kernel against its plain version in f32 and
    bf16: the reference sweep, ragged lengths, an initial state, a strided
-   view and zamba2's prefill shape; then times it and the plain version
-   there, beside the card's bound (no single PyTorch call computes it);
+   view and zamba2's prefill shape (its bf16 error printed apart); then
+   times it and the plain version there, beside the card's bound (no
+   single PyTorch call computes it), and the kernel on the first batch
+   row alone;
 6. holds the RWKV6 WKV kernel against its plain version in f32 and bf16:
    the reference sweep, a nonzero bonus u, ragged lengths, an initial
    state, decays up to and at the rate cap, lengths ending inside and at
@@ -597,6 +599,8 @@ def ssd_kernel_phase(torch, sd, gen):
                     *inputs(*SSD_PREFILL, dtype))
         if dtype == torch.bfloat16:
             err = e
+    print(f"  ssd bf16 max abs error of y at zamba2-2.7b's prefill shape: "
+          f"{err:.3e}")
     return err
 
 
@@ -621,17 +625,22 @@ def ssd_timing_phase(torch, sd, gen):
                      for shape in ((B, S, H, P), (B, S, N), (B, S, N))])
         sets[-1].insert(1, a)
 
-    def rotating(impl, n=len(sets)):
+    def rotating(impl, sets=sets):
         state = {"i": 0}
 
         def fn():
-            state["i"] = (state["i"] + 1) % n
+            state["i"] = (state["i"] + 1) % len(sets)
             return sd.ssd(*sets[state["i"]], impl=impl)
         return fn
 
     ms = device_ms(torch, rotating("auto"))
     event_ms = time_ms(torch, rotating("auto"), iters=20)
     plain_ms = device_ms(torch, rotating("ref"), 5)
+    # the first batch row alone: a third of the blocks.  A kernel bound by
+    # its throughput takes a third of the time; one bound by the latency
+    # of its chain of chunks about as long
+    row0 = [[t[:1] for t in s] for s in sets]
+    ms_row0 = device_ms(torch, rotating("auto", row0))
     # operations of the reference algorithm at its chunk (scores C B^T and
     # their product with X per head over whole chunks, the states and the
     # inter-chunk term), 2 FLOP per multiply-add; independent of the
@@ -648,7 +657,8 @@ def ssd_timing_phase(torch, sd, gen):
           f"{event_ms:.4f} ms) | plain {plain_ms:.4f} ms | no library call "
           f"| bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, "
           f"{nbytes / 1e6:.2f} MB)")
-    del sets
+    print(f"  B1 alone: {ms_row0:.4f} ms, {ms_row0 / ms:.3f} of B{B}'s time")
+    del sets, row0
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
             "bound_ms": bound_ms, "bound_by": bound_by}
 

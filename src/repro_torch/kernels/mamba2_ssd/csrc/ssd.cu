@@ -7,7 +7,7 @@
 //
 //   y      = (L o C B^T) X + (C state^T) o exp(cum)
 //            L[i,j] = exp(cum_i - cum_j) for i >= j, else 0
-//   state' = exp(cum_last) state + (B o exp(cum_last - cum))^T X
+//   state' = exp(cum_last) state + (X o exp(cum_last - cum))^T B
 //
 // Layout: xdt (B,S,H,P) and B, C (B,S,N) with any strides on the leading
 // dims and the last dim contiguous, read in place (no copy folds (B,H)
@@ -20,64 +20,96 @@
 //
 // The Pallas kernel carries the state in VMEM across the grid's
 // sequential chunk axis.  Blocks on Hopper run in no order, so here one
-// block owns a (b, h, 32 or 16 columns of P) and walks the chunks in a
+// block owns a (b, h, 64 columns of P: the whole head at P 64; 32 or 16
+// where P is no multiple of 64) and walks the chunks of 64 rows in a
 // loop; the state's rows p depend only on column p of X, so splitting P
-// is exact.  At zamba2-2.7b's prefill (B 3, H 80, P 64) that is 480
-// blocks on 132 SMs.  B and C are shared across heads and come from L2.
+// is exact.
 //
-// What bounds it on an H100: at that prefill shape (S 1024, N 64, bf16)
-// the reference algorithm's 20.1 GFLOP against 68.6 MB of x, y, a, B, C
-// and the state put the bound at the memory rate, ~0.0205 ms.  The design
-// reads each input once (the next chunk's X, B and C are fetched by
-// cp.async while the current chunk is computed, a double-buffered ring)
-// and keeps everything else on chip: the f32 state lives in registers as
-// the accumulators of its own update, for the whole sequence.
+// What bounds it on an H100: at zamba2-2.7b's prefill (B 3, S 1024, H 80,
+// P 64, N 64, bf16) the reference algorithm's 20.1 GFLOP against 68.6 MB
+// of x, y, a, B, C and the state put the bound at the memory rate, ~0.0205
+// ms.  The design before this one ran every step of a chunk on one chain
+// between two block barriers, 480 blocks of 32 columns: 0.118 ms,
+// bound by the latency of that chain (its first batch row alone took 0.76
+// of the time of all three).  Taken apart (tools/ssd_probe.py variants),
+// its loads, barriers and stores alone took 0.065 ms.
 //
-// * bf16 (the served dtype): tensor cores through mma.sync m16n8k16 with
-//   f32 accumulation; chunks of 64 rows, four warps of 16 rows each.
-//   C B^T (bf16 inputs, exact products) skips the key tiles above the
-//   diagonal.  Every other product has an f32 operand: the masked, decayed
-//   scores M for M X, the state for C state^T, X o decay for the state
-//   update.  Each goes in as a bf16 hi + lo split, two mma, about 16
-//   mantissa bits, so y matches the plain version's f32 sums to about
-//   1e-5 relative before its one rounding, and the state is never rounded
-//   below f32 from chunk to chunk.  (Rounding M to bf16 once, as flash
-//   rounds P, moved zamba2's prefill logits by 5.3% of their largest value
-//   against the plain version.)  Not done yet (later work): wgmma, TMA
-//   and a larger chunk.
+// Design (bf16, the served dtype).  Only the state recurrence has to run
+// in order: with U_c = (X_c o w_c)^T B_c, state_{c+1} = exp(cum_last)
+// state_c + U_c, and the decays, the masked scores M = L o (C B^T), the
+// intra-chunk y = M X and U_c depend on no state; y's term
+// exp(cum) o (C state_c^T) hangs off the chain and feeds nothing in it.
+// So a block's two warpgroups run apart, on mbarriers, with no block
+// barrier in the loop:
+//   the chain (warps 0 to 3) holds the f32 state as the accumulators of a
+//     wgmma m64nNk16 (rows p, one warp a 16 of them), for the whole
+//     sequence.  Per chunk: the decays (each warp scans the chunk's 64 a
+//     itself, loaded two chunks ahead); the state as bf16 hi + lo into
+//     the state slot, the chunk's cum beside it; then state = exp(cum_last) state +
+//     (X o w)^T B, two wgmma a k-step with (X o w)^T from registers
+//     (ldmatrix, scaled, split into hi + lo) and B from shared memory;
+//   the output warps (warps 4 to 7) take chunk c's slot and inputs:
+//     y = C (state hi + lo)^T and S = C B^T, wgmma with both operands in
+//     shared memory; the slot is freed once the first has read it; the
+//     decays L of the scores while they run; y scaled by exp(cum) by rows;
+//     M = L o S from S's accumulators, split into hi + lo A fragments;
+//     y += M X (two wgmma a k-step); y staged in X's place in the input
+//     slot and stored by TMA.
+// The chain runs up to RING chunks ahead of the output warps.  X, B and C
+// arrive by TMA boxes (rows past S as zeros) in NIN input slots, each
+// loaded again once both warpgroups are done with it and its y has left.
+// Exponentials are ex2.approx of log2(e)-scaled differences of cum (about
+// 2^-22 relative, as expf).
+//
+// One block a head, not Mamba2's usual split into kernels over (b, h,
+// chunk): a split writes every chunk's f32 state to device memory and
+// reads it back, 63 MB at this shape and chunk 64, about 190 MB more
+// traffic against the 68.6 MB bound.  Nor several heads a block: B and C
+// are shared by the heads, but loading them only once a block (tried by
+// the probe's nobc) saved 0.002 ms, and the scores, which several heads
+// would share, are 4 of a chunk's 28 wgmma.  At B3 that is 240 blocks of
+// 256 threads and 91 KB on 132 SMs, two an SM (128 registers a thread):
+// 108 SMs hold two heads, 24 one.  Half a head a block (480 blocks, each
+// computing all the head's decays and scores) took 0.075 ms.
+//
+// Times (tools/ssd_probe.py and chip_smoke.py on an NVIDIA H100 80GB
+// HBM3 at 700 W, device time, cold L2): 0.0440 to 0.0450 ms at B3, the
+// first batch row alone 0.56 to 0.60 of that; the design before it 0.118
+// to 0.120 in the same runs.  Taken apart: loads,
+// hand-offs and the stores of y alone 0.033 ms; the hi + lo pairs'
+// second products and splits 0.008; the scores and M X 0.009; the state
+// update 0.007; the decays 0.005.  What is left is the latency of the
+// hand-offs and loads around the products (the skeleton moves its bytes
+// at about 2 TB/s) more than the products themselves.
+//
+// Precision: every f32 operand goes into the tensor cores as a bf16 hi +
+// lo pair, about 16 mantissa bits: M, the state and X o w.  C B^T of bf16
+// inputs is exact products summed in f32.  The state is carried in f32
+// and never rounded below it from chunk to chunk.  (Rounding M to bf16
+// once moved zamba2's prefill logits by 5.3% of their largest value
+// against the plain version, past the 5% allowed.)
+//
 // * f32: CUDA cores (tensor cores would round to tf32, about 1e-3
-//   relative), 256 threads a block.
+//   relative), 256 threads a block, one chain of every step (not served).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
+
+#include "common/hopper.cuh"
 
 namespace {
 
-constexpr int Q = 64;  // rows per chunk
+constexpr int Q = 64;  // rows per chunk: one wgmma M tile
 constexpr unsigned FULL = 0xffffffffu;
 
-struct Params {
-  const void* x;
-  const float* a;
-  const void* Bm;
-  const void* Cm;
-  const float* init;  // null: zero initial state
-  void* y;
-  float* state;
-  int B, S, H, P;
-  long long sxb, sxs, sxh;  // xdt strides in elements (P contiguous)
-  long long sab, sas, sah;  // a strides
-  long long sbb, sbs;       // B strides (N contiguous)
-  long long scb, scs;       // C strides (N contiguous)
-};
-
-// cum, exp(cum_last - cum) and exp(cum) of one chunk's 64 decays, by one
-// warp: lane l holds rows 2l and 2l + 1.
-__device__ __forceinline__ void chunk_decays(const float (&v)[2], int lane,
-                                             float* cum_s, float* w_s,
-                                             float* e_s) {
+// cum of one chunk's 64 decays, by one warp: lane l holds rows 2l and
+// 2l + 1 (c0, c1); total is the chunk's sum.
+__device__ __forceinline__ void chunk_cum(const float (&v)[2], int lane,
+                                          float& c0, float& c1,
+                                          float& total) {
   float incl = v[0] + v[1];
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
@@ -85,9 +117,18 @@ __device__ __forceinline__ void chunk_decays(const float (&v)[2], int lane,
     if (lane >= o) incl += t;
   }
   const float prev = __shfl_up_sync(FULL, incl, 1);
-  const float total = __shfl_sync(FULL, incl, 31);
-  const float c0 = (lane ? prev : 0.f) + v[0];
-  const float c1 = c0 + v[1];
+  total = __shfl_sync(FULL, incl, 31);
+  c0 = (lane ? prev : 0.f) + v[0];
+  c1 = c0 + v[1];
+}
+
+// cum, exp(cum_last - cum) and exp(cum) of one chunk's 64 decays, by one
+// warp: lane l holds rows 2l and 2l + 1.
+__device__ __forceinline__ void chunk_decays(const float (&v)[2], int lane,
+                                             float* cum_s, float* w_s,
+                                             float* e_s) {
+  float c0, c1, total;
+  chunk_cum(v, lane, c0, c1, total);
   cum_s[2 * lane] = c0;
   cum_s[2 * lane + 1] = c1;
   w_s[2 * lane] = expf(total - c0);
@@ -97,23 +138,32 @@ __device__ __forceinline__ void chunk_decays(const float (&v)[2], int lane,
 }
 
 // The decays of rows 2 * lane and 2 * lane + 1 of chunk c (0 past S).
-__device__ __forceinline__ void load_decays(const Params& p, const float* ag,
-                                            int c, int lane, float (&v)[2]) {
+__device__ __forceinline__ void load_decays(const float* ag, long long sas,
+                                            int S, int c, int lane,
+                                            float (&v)[2]) {
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
     const int s = c * Q + 2 * lane + k;
-    v[k] = s < p.S ? ag[s * p.sas] : 0.f;
+    v[k] = s < S ? ag[s * sas] : 0.f;
   }
 }
 
 // ===========================================================================
-// bf16: tensor cores (mma.sync m16n8k16, f32 accumulate)
+// bf16: the state chain and the output warps on wgmma
 // ===========================================================================
 
-constexpr int TC_NT = 128;  // 4 warps x 16 chunk rows
+constexpr int RING = 1;  // state slots between the chain and the output warps
+constexpr int NIN = 3;   // input slots (X, B, C of a chunk)
+constexpr int SLACK = 1024;  // shared memory to align the base
 
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* ptr) {
-  return *reinterpret_cast<const uint32_t*>(ptr);
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x on the special-function unit (relative error about 2^-22, as good
+// as expf's for these operands); results below 2^-126 flush to zero
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -139,321 +189,372 @@ __device__ __forceinline__ void scale_split(uint32_t v, float w0, float w1,
   split_bf16(f.x * w0, f.y * w1, hi, lo);
 }
 
-// c += a (16x16, row) * b (16x8, col); bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Four 8x8 b16 matrices, transposed on the way in: lanes 8i..8i+7 give
 // the row addresses of matrix i, register i receives matrix i.
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
                                                   const void* smem_ptr) {
-  const unsigned addr =
-      static_cast<unsigned>(__cvta_generic_to_shared(smem_ptr));
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+      : "r"(hopper::smem_addr(smem_ptr)));
 }
 
-// Two 8x8 b16 matrices, transposed: lanes 0..7 and 8..15 give the rows.
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
-                                                  const void* smem_ptr) {
-  const unsigned addr =
-      static_cast<unsigned>(__cvta_generic_to_shared(smem_ptr));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(addr));
+// Keeps A fragments alive until the wgmma that reads them is done.
+__device__ __forceinline__ void keep(uint32_t (&f)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(f[i][e])::"memory");
 }
 
-// 16 bytes global -> shared, asynchronously; zeros when !valid (src-size
-// 0: nothing is read, `src` need only be a valid address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :
-               : "r"(d), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
+// Shared memory of a block, in bytes from a 1024-aligned base, for PB
+// columns of P and state dim N.  A tile of rows whose values fill no more
+// than one swizzle row (128 bytes, 64 bf16) is one region; B, C and the
+// state at N 128 are two regions of 64 columns.  Every region starts
+// 1024-aligned and is swizzled by its row width, as TMA writes it.
+//   NIN input slots: X [Q][PB] (then the chunk's y, once every warp is
+//     done with the slot), B [NR][Q][NSW], C [NR][Q][NSW];
+//   RING state slots: the state's hi [NR][PB][NSW] and lo parts;
+//   cum [RING][Q] beside them; mbarriers: landed, freed [NIN], full,
+//   empty [RING]; and slack to align the base.
 template <int PB, int N>
-struct TcSmem {
-  static constexpr int XST = PB + 8;  // row strides: 16-byte rows whose 8
-  static constexpr int BST = N + 8;   // ldmatrix rows fall on other banks
-  // X, B, C double-buffered; the state's hi and lo halves; cum, w, e
-  static constexpr int BYTES =
-      (2 * Q * XST + 4 * Q * BST + 2 * PB * BST) * 2 + 3 * Q * 4;
+struct Cfg {
+  static constexpr int NSW = N < 64 ? N : 64;  // values a region's row
+  static constexpr int NR = N / NSW;           // regions
+  static constexpr int KS = NSW / 16;          // k-steps over a region
+  static constexpr int XB = Q * PB * 2;        // X tile bytes
+  static constexpr int RB = Q * NSW * 2;       // a region of B or C
+  static constexpr int IN = XB + 2 * NR * RB;  // an input slot
+  static constexpr int STILE = (PB * NSW * 2 + 1023) / 1024 * 1024;
+  static constexpr int SLOT = 2 * NR * STILE;
+  static constexpr int CUM = NIN * IN + RING * SLOT;
+  static constexpr int BARS = CUM + RING * Q * 4;
+  static constexpr int BYTES = BARS + 8 * (2 * NIN + 2 * RING) + SLACK;
+  static constexpr int NT = 256;
+  // blocks an SM holds: 228 KB, less 1 KB the system keeps for each
+  static constexpr int FIT = 233472 / (BYTES + 1024);
+  static constexpr int MIN_BLOCKS = FIT >= 2 ? 2 : 1;
+  static_assert(BYTES <= 232448, "shared memory of one block");
+};
+
+struct TmaParams {
+  // x and y boxes of PB columns by Q rows, 4-d maps over (P, S, H, B); B
+  // and C boxes of NSW columns by Q rows, over (N, S, B, 1)
+  CUtensorMap xmap, ymap, bmap, cmap;
+  const float* a;
+  const float* init;  // null: zero initial state
+  float* state;
+  int S, H, P;
+  long long sab, sas, sah;  // a strides
 };
 
 template <int PB, int N>
-__global__ void __launch_bounds__(TC_NT) ssd_bf16_kernel(const Params p) {
-  using bf16 = __nv_bfloat16;
-  constexpr int XST = TcSmem<PB, N>::XST, BST = TcSmem<PB, N>::BST;
-  constexpr int NK = Q / 8;    // key n-tiles of C B^T
-  constexpr int NP = PB / 8;   // n-tiles of y over P
-  constexpr int KN = N / 16;   // k-steps over N
-  constexpr int WM = PB / 16;  // warps over the state's rows (P)
-  constexpr int WN = 4 / WM;   // warps over its columns (N)
-  constexpr int SN = (N / 8 + WN - 1) / WN;  // state n-tiles per warp
-  static_assert(PB == 16 || PB == 32, "P tile");
-  static_assert(N % 16 == 0 && Q == 16 * (TC_NT / 32), "tile shape");
+__global__ void __launch_bounds__(Cfg<PB, N>::NT, Cfg<PB, N>::MIN_BLOCKS)
+    ssd_bf16_kernel(const __grid_constant__ TmaParams p) {
+  using C = Cfg<PB, N>;
+  constexpr int NSW = C::NSW, NR = C::NR, KS = C::KS, SW = NSW * 2;
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Xs = reinterpret_cast<bf16*>(smem_raw);  // [2][Q][XST]
-  bf16* Bs = Xs + 2 * Q * XST;                   // [2][Q][BST]
-  bf16* Cs = Bs + 2 * Q * BST;                   // [2][Q][BST]
-  bf16* Sh = Cs + 2 * Q * BST;                   // state, hi: [PB][BST]
-  bf16* Sl = Sh + PB * BST;                      // state, lo: [PB][BST]
-  float* cum_s = reinterpret_cast<float*>(Sl + PB * BST);
-  float* w_s = cum_s + Q;  // exp(cum_last - cum_j)
-  float* e_s = w_s + Q;    // exp(cum_i)
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* inputs = smem;             // NIN input slots
+  unsigned char* slots = smem + NIN * C::IN;  // RING state slots
+  float* cums = reinterpret_cast<float*>(smem + C::CUM);  // [RING][Q]
+  uint64_t* landed = reinterpret_cast<uint64_t*>(smem + C::BARS);
+  uint64_t* freed = landed + NIN;  // an input slot read by all 8 warps
+  uint64_t* full = freed + NIN;    // a state slot written by the chain
+  uint64_t* empty = full + RING;   // a state slot read by the output warps
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;  // mma fragment row / column pair
-  const int lm = lane >> 3, lr = lane & 7;  // ldmatrix matrix / row
+  const int g = lane >> 2, t = lane & 3;    // accumulator row, column pair
+  const int lm = lane >> 3, lr = lane & 7;  // ldmatrix matrix, row
   const int p0 = blockIdx.x * PB, h = blockIdx.y, b = blockIdx.z;
   const int nc = (p.S + Q - 1) / Q;
 
-  const bf16* xg =
-      static_cast<const bf16*>(p.x) + b * p.sxb + h * p.sxh + p0;
-  const bf16* bg = static_cast<const bf16*>(p.Bm) + b * p.sbb;
-  const bf16* cg = static_cast<const bf16*>(p.Cm) + b * p.scb;
-  const float* ag = p.a + b * p.sab + h * p.sah;
-  bf16* yg = static_cast<bf16*>(p.y);
-
-  auto load_chunk = [&](int buf, int c) {
-    constexpr int XCH = PB / 8, BCH = N / 8;  // 16-byte chunks per row
-    const int s0 = c * Q;
-    for (int e = tid; e < Q * XCH; e += TC_NT) {
-      const int r = e / XCH, col = (e % XCH) * 8;
-      const bool ok = s0 + r < p.S;
-      cp_async16(Xs + (buf * Q + r) * XST + col,
-                 ok ? xg + (s0 + r) * p.sxs + col : xg, ok);
+  if (tid == 0) {
+    for (int s = 0; s < NIN; ++s) {
+      hopper::mbar_init(&landed[s], 1);
+      hopper::mbar_init(&freed[s], 8);
     }
-    for (int e = tid; e < Q * BCH; e += TC_NT) {
-      const int r = e / BCH, col = (e % BCH) * 8;
-      const bool ok = s0 + r < p.S;
-      cp_async16(Bs + (buf * Q + r) * BST + col,
-                 ok ? bg + (s0 + r) * p.sbs + col : bg, ok);
-      cp_async16(Cs + (buf * Q + r) * BST + col,
-                 ok ? cg + (s0 + r) * p.scs + col : cg, ok);
+    for (int s = 0; s < RING; ++s) {
+      hopper::mbar_init(&full[s], 4);
+      hopper::mbar_init(&empty[s], 4);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // chunk c's X, B and C into input slot c % NIN, by thread 128
+  auto issue = [&](int c) {
+    unsigned char* in = inputs + (c % NIN) * C::IN;
+    uint64_t* bar = &landed[c % NIN];
+    hopper::mbar_arrive_expect_tx(bar, C::IN);
+    hopper::tma_load_4d(in, &p.xmap, bar, p0, c * Q, h, b);
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      hopper::tma_load_4d(in + C::XB + r * C::RB, &p.bmap, bar, r * NSW,
+                          c * Q, b, 0);
+      hopper::tma_load_4d(in + C::XB + (NR + r) * C::RB, &p.cmap, bar,
+                          r * NSW, c * Q, b, 0);
     }
   };
+  const bool issuer = tid == 128;
+  if (issuer)
+    for (int c = 0; c < min(NIN, nc); ++c) issue(c);
 
-  // The state: warp (wm, wn) holds rows wm*16 .. +15 and n-tiles
-  // wn + WN*t as mma accumulators, f32, for the whole sequence.
-  const int wm = warp % WM, wn = warp / WM;
-  const long long st_base =
-      (static_cast<long long>(b) * p.H + h) * p.P * N + p0 * N;
-  float st[SN][4];
+  if (warp < 4) {
+    // ---------------------------------------------------------------
+    // The chain.  Warp w holds rows p = 16 w .. + 16 of the state (all
+    // N columns) as wgmma accumulators: st[r][4 j + e] is row 16 w + g +
+    // 8 (e / 2), column 64 r + 8 j + 2 t + e % 2.  Rows past PB stay 0.
+    // ---------------------------------------------------------------
+    const int wr = 16 * warp;
+    const bool live = wr < PB;
+    const long long st_base =
+        (static_cast<long long>(b) * p.H + h) * p.P * N +
+        static_cast<long long>(p0) * N;
+    float st[NR][NSW / 2];
 #pragma unroll
-  for (int t = 0; t < SN; ++t)
+    for (int r = 0; r < NR; ++r)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int nt = wn + WN * t;
-      const int row = wm * 16 + g + 8 * (e >> 1);
-      const int col = nt * 8 + tig * 2 + (e & 1);
-      st[t][e] = (nt < N / 8 && p.init) ? p.init[st_base + row * N + col]
-                                        : 0.f;
-    }
-  // its bf16 hi + lo copy in shared memory, the B operand of C state^T
-  auto write_state = [&]() {
-#pragma unroll
-    for (int t = 0; t < SN; ++t) {
-      const int nt = wn + WN * t;
-      if (nt >= N / 8) continue;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int off = (wm * 16 + g + 8 * r) * BST + nt * 8 + tig * 2;
-        split_bf16(st[t][2 * r], st[t][2 * r + 1],
-                   *reinterpret_cast<uint32_t*>(Sh + off),
-                   *reinterpret_cast<uint32_t*>(Sl + off));
+      for (int i = 0; i < NSW / 2; ++i) {
+        const int row = wr + g + 8 * ((i >> 1) & 1);
+        const int col = r * NSW + 8 * (i >> 2) + 2 * t + (i & 1);
+        st[r][i] =
+            (live && p.init) ? p.init[st_base + row * N + col] : 0.f;
       }
-    }
-  };
+    const float* ag = p.a + b * p.sab + h * p.sah;
+    float v[2], vn[2];  // the decays of chunks c and c + 1
+    load_decays(ag, p.sas, p.S, 0, lane, v);
+    load_decays(ag, p.sas, p.S, 1, lane, vn);
 
-  write_state();
-  float a_next[2] = {0.f, 0.f};
-  if (warp == 0) load_decays(p, ag, 0, lane, a_next);
-  load_chunk(0, 0);
-  cp_async_commit();
+    for (int c = 0; c < nc; ++c) {
+      const int si = c % NIN, ss = c % RING;
+      // cum of the chunk, its total; the decays two chunks on loaded
+      float c0, c1, total;
+      chunk_cum(v, lane, c0, c1, total);
+      v[0] = vn[0];
+      v[1] = vn[1];
+      if (c + 2 < nc) load_decays(ag, p.sas, p.S, c + 2, lane, vn);
+      const float dec = exp2_approx(total * LOG2E);
+      const float w0 = exp2_approx((total - c0) * LOG2E);
+      const float w1 = exp2_approx((total - c1) * LOG2E);
 
-  const int r0 = warp * 16 + g;  // this thread's chunk rows: r0, r0 + 8
-  for (int c = 0; c < nc; ++c) {
-    const int buf = c & 1;
-    if (c + 1 < nc) load_chunk(buf ^ 1, c + 1);
-    cp_async_commit();
-    if (warp == 0) {
-      const float v[2] = {a_next[0], a_next[1]};
-      if (c + 1 < nc) load_decays(p, ag, c + 1, lane, a_next);
-      chunk_decays(v, lane, cum_s, w_s, e_s);
-    }
-    // Chunk c has landed; the decays and the state copy are visible.
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* xs = Xs + buf * Q * XST;
-    const bf16* bs = Bs + buf * Q * BST;
-    const bf16* cs = Cs + buf * Q * BST;
+      // the state before chunk c, as bf16 hi + lo, into slot ss; cum
+      // beside it
+      if (c >= RING) hopper::mbar_wait(&empty[ss], ((c / RING) - 1) & 1);
+      unsigned char* slot = slots + ss * C::SLOT;
+      if (live) {
+#pragma unroll
+        for (int r = 0; r < NR; ++r)
+#pragma unroll
+          for (int j = 0; j < NSW / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const uint32_t off = r * C::STILE +
+                                   hopper::swizzled(wr + g + 8 * e,
+                                                    (8 * j + 2 * t) * 2, SW);
+              split_bf16(st[r][4 * j + 2 * e], st[r][4 * j + 2 * e + 1],
+                         *reinterpret_cast<uint32_t*>(slot + off),
+                         *reinterpret_cast<uint32_t*>(slot + NR * C::STILE +
+                                                      off));
+            }
+      }
+      if (warp == 0)
+        reinterpret_cast<float2*>(cums + ss * Q)[lane] = make_float2(c0, c1);
+      hopper::fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&full[ss]);
 
-    // -- C fragments of the warp's 16 rows (A operand over N) -------------
-    uint32_t cf[KN][4];
+      // state = exp(cum_last) state + (X o w)^T B: A[p][j] = X[j][p] w_j,
+      // k-step kk's fragments from rows j = 16 kk .. of X, transposed
+      hopper::mbar_wait(&landed[si], (c / NIN) & 1);
+      const unsigned char* in = inputs + si * C::IN;
+      uint32_t ahi[4][4], alo[4][4];
 #pragma unroll
-    for (int kk = 0; kk < KN; ++kk) {
-      const bf16* lo = cs + r0 * BST + kk * 16 + tig * 2;
-      const bf16* hi = lo + 8 * BST;
-      cf[kk][0] = ld_u32(lo);
-      cf[kk][1] = ld_u32(hi);
-      cf[kk][2] = ld_u32(lo + 8);
-      cf[kk][3] = ld_u32(hi + 8);
-    }
-
-    // -- M = L o (C B^T): key tiles up to the diagonal --------------------
-    const float ci[2] = {cum_s[r0], cum_s[r0 + 8]};
-    float sc[NK][4];
+      for (int kk = 0; kk < 4; ++kk) {
+        // w of columns j = 16 kk + 2 t, + 1 (lane 8 kk + t) and + 8, + 9
+        const float wa = __shfl_sync(FULL, w0, 8 * kk + t);
+        const float wb = __shfl_sync(FULL, w1, 8 * kk + t);
+        const float wc = __shfl_sync(FULL, w0, 8 * kk + t + 4);
+        const float wd = __shfl_sync(FULL, w1, 8 * kk + t + 4);
+        if (live) {
+          uint32_t xa[4];
+          ldmatrix_x4_trans(
+              xa, in + hopper::swizzled(16 * kk + (lm >> 1) * 8 + lr,
+                                        (wr + (lm & 1) * 8) * 2, PB * 2));
+          scale_split(xa[0], wa, wb, ahi[kk][0], alo[kk][0]);
+          scale_split(xa[1], wa, wb, ahi[kk][1], alo[kk][1]);
+          scale_split(xa[2], wc, wd, ahi[kk][2], alo[kk][2]);
+          scale_split(xa[3], wc, wd, ahi[kk][3], alo[kk][3]);
+        } else {
 #pragma unroll
-    for (int j = 0; j < NK; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
-      if (j <= 2 * warp + 1) {
-        const bf16* krow = bs + (j * 8 + g) * BST + tig * 2;
-#pragma unroll
-        for (int kk = 0; kk < KN; ++kk)
-          mma_bf16(sc[j], cf[kk], ld_u32(krow + kk * 16),
-                   ld_u32(krow + kk * 16 + 8));
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = r0 + 8 * (e >> 1), col = j * 8 + tig * 2 + (e & 1);
-          sc[j][e] = col <= i ? sc[j][e] * expf(ci[e >> 1] - cum_s[col])
-                              : 0.f;
+          for (int q = 0; q < 4; ++q) ahi[kk][q] = alo[kk][q] = 0u;
         }
       }
+#pragma unroll
+      for (int r = 0; r < NR; ++r) {
+#pragma unroll
+        for (int i = 0; i < NSW / 2; ++i) st[r][i] *= dec;
+        hopper::fence_regs(st[r]);
+      }
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < NR; ++r) {
+          const uint64_t d =
+              hopper::smem_desc(in + C::XB + r * C::RB + kk * 16 * SW, SW);
+          hopper::wgmma_rs_tb<NSW>(st[r], ahi[kk], d, 1);
+          hopper::wgmma_rs_tb<NSW>(st[r], alo[kk], d, 1);
+        }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int r = 0; r < NR; ++r) hopper::fence_regs(st[r]);
+      keep(ahi);
+      keep(alo);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&freed[si]);
     }
 
-    // -- y = M X, M as hi + lo (the scores' accumulator fragments are the
-    //    A fragments, as flash's P is) --------------------------------------
-    float yacc[NP][4];
+    if (live) {
 #pragma unroll
-    for (int j = 0; j < NP; ++j)
+      for (int r = 0; r < NR; ++r)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) yacc[j][e] = 0.f;
+        for (int j = 0; j < NSW / 8; ++j)
 #pragma unroll
-    for (int kk = 0; kk < Q / 16; ++kk) {
-      if (kk > warp) continue;
-      uint32_t ahi[4], alo[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int j = 2 * kk + (q >> 1), e = 2 * (q & 1);
-        split_bf16(sc[j][e], sc[j][e + 1], ahi[q], alo[q]);
-      }
-      const bf16* vrow =
-          xs + (kk * 16 + (lm & 1) * 8 + lr) * XST + (lm >> 1) * 8;
-#pragma unroll
-      for (int j = 0; j < NP; j += 2) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, vrow + j * 8);
-        mma_bf16(yacc[j], ahi, bv[0], bv[1]);
-        mma_bf16(yacc[j], alo, bv[0], bv[1]);
-        mma_bf16(yacc[j + 1], ahi, bv[2], bv[3]);
-        mma_bf16(yacc[j + 1], alo, bv[2], bv[3]);
-      }
+          for (int e = 0; e < 2; ++e) {
+            const int row = wr + g + 8 * e, col = r * NSW + 8 * j + 2 * t;
+            *reinterpret_cast<float2*>(p.state + st_base + row * N + col) =
+                make_float2(st[r][4 * j + 2 * e], st[r][4 * j + 2 * e + 1]);
+          }
     }
+  } else {
+    // ---------------------------------------------------------------
+    // The output warps.  Warp 4 + w computes rows i = 16 w .. + 16 of
+    // each chunk's y (all PB columns) and of its scores.
+    // ---------------------------------------------------------------
+    const int wr = 16 * (warp - 4);
+    for (int c = 0; c < nc; ++c) {
+      const int si = c % NIN, ss = c % RING;
+      hopper::mbar_wait(&full[ss], (c / RING) & 1);
+      hopper::mbar_wait(&landed[si], (c / NIN) & 1);
+      const unsigned char* in = inputs + si * C::IN;
+      const unsigned char* bs = in + C::XB;
+      const unsigned char* cs = bs + NR * C::RB;
+      const unsigned char* slot = slots + ss * C::SLOT;
+      const float* cum = cums + ss * Q;
 
-    // -- y += exp(cum) o (C state^T), the state as hi + lo ----------------
-    float yoff[NP][4];
+      // y = C (state hi + lo)^T, then S = C B^T; k-steps over N
+      float y[PB / 2], s[Q / 2];
+      hopper::wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < NP; ++j) {
+      for (int part = 0; part < 2; ++part)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) yoff[j][e] = 0.f;
-      const bf16* sh = Sh + (j * 8 + g) * BST + tig * 2;
-      const bf16* sl = Sl + (j * 8 + g) * BST + tig * 2;
+        for (int r = 0; r < NR; ++r)
 #pragma unroll
-      for (int kk = 0; kk < KN; ++kk) {
-        mma_bf16(yoff[j], cf[kk], ld_u32(sh + kk * 16),
-                 ld_u32(sh + kk * 16 + 8));
-        mma_bf16(yoff[j], cf[kk], ld_u32(sl + kk * 16),
-                 ld_u32(sl + kk * 16 + 8));
+          for (int k = 0; k < KS; ++k)
+            hopper::wgmma_ss<PB, 0, 0>(
+                y, hopper::smem_desc(cs + r * C::RB + k * 32, SW),
+                hopper::smem_desc(
+                    slot + (part * NR + r) * C::STILE + k * 32, SW),
+                part || r || k);
+      hopper::wgmma_commit();
+#pragma unroll
+      for (int r = 0; r < NR; ++r)
+#pragma unroll
+        for (int k = 0; k < KS; ++k)
+          hopper::wgmma_ss<Q, 0, 0>(
+              s, hopper::smem_desc(cs + r * C::RB + k * 32, SW),
+              hopper::smem_desc(bs + r * C::RB + k * 32, SW), r || k);
+      hopper::wgmma_commit();
+      // the last chunk's y has left its input slot: chunk c - 1 + NIN may
+      // load there
+      if (issuer && c > 0 && c - 1 + NIN < nc) {
+        hopper::bulk_wait_read();
+        issue(c - 1 + NIN);
       }
-    }
+      // while they run, L of each score this thread holds (the layout of
+      // S's accumulators: element 4 j + 2 e + x is row wr + g + 8 e,
+      // column 8 j + 2 t + x); column chunks wholly above the warp's
+      // diagonal are 0
+      const float ci[2] = {cum[wr + g], cum[wr + g + 8]};
+      float L[Q / 2];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int s = c * Q + r0 + 8 * r;
-      if (s >= p.S) continue;
-      const float ei = e_s[r0 + 8 * r];
-      bf16* yrow = yg + ((static_cast<long long>(b) * p.S + s) * p.H + h) *
-                            p.P + p0 + tig * 2;
+      for (int j = 0; j < Q / 8; ++j) {
+        const float2 cj = reinterpret_cast<const float2*>(cum)[4 * j + t];
 #pragma unroll
-      for (int j = 0; j < NP; ++j) {
-        const int e = 2 * r;
-        *reinterpret_cast<__nv_bfloat162*>(yrow + j * 8) =
-            __floats2bfloat162_rn(yacc[j][e] + ei * yoff[j][e],
-                                  yacc[j][e + 1] + ei * yoff[j][e + 1]);
+        for (int e = 0; e < 2; ++e) {
+          const int row = wr + g + 8 * e, col = 8 * j + 2 * t;
+          const bool live = 8 * j <= wr + 15;
+          L[4 * j + 2 * e] =
+              live && col <= row ? exp2_approx((ci[e] - cj.x) * LOG2E) : 0.f;
+          L[4 * j + 2 * e + 1] = live && col + 1 <= row
+                                     ? exp2_approx((ci[e] - cj.y) * LOG2E)
+                                     : 0.f;
+        }
       }
-    }
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(y);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[ss]);  // the slot is read
 
-    // -- state = exp(cum_last) state + (X o w)^T B, X o w as hi + lo ------
-    const float dec = e_s[Q - 1];
+      // y scaled by exp(cum) of its rows
+      const float e0 = exp2_approx(ci[0] * LOG2E);
+      const float e1 = exp2_approx(ci[1] * LOG2E);
 #pragma unroll
-    for (int t = 0; t < SN; ++t)
+      for (int i = 0; i < PB / 2; ++i) y[i] *= (i & 2) ? e1 : e0;
+
+      // M = L o S as the A fragments of M X, hi + lo: k-step kk takes the
+      // accumulator chunks 2 kk and 2 kk + 1 (as flash's P)
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+      uint32_t mhi[4][4], mlo[4][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) st[t][e] *= dec;
+      for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-    for (int kk = 0; kk < Q / 16; ++kk) {
-      // A[p][j] = X[j][p] w_j: matrix i holds rows j = kk*16 + (i>>1)*8 ..,
-      // columns p = wm*16 + (i&1)*8 ..
-      uint32_t xa[4], ahi[4], alo[4];
-      ldmatrix_x4_trans(
-          xa, xs + (kk * 16 + (lm >> 1) * 8 + lr) * XST + wm * 16 +
-                  (lm & 1) * 8);
-      const int j0 = kk * 16 + tig * 2;
-      const float w0 = w_s[j0], w1 = w_s[j0 + 1];
-      const float w8 = w_s[j0 + 8], w9 = w_s[j0 + 9];
-      scale_split(xa[0], w0, w1, ahi[0], alo[0]);
-      scale_split(xa[1], w0, w1, ahi[1], alo[1]);
-      scale_split(xa[2], w8, w9, ahi[2], alo[2]);
-      scale_split(xa[3], w8, w9, ahi[3], alo[3]);
+        for (int q = 0; q < 4; ++q) {
+          const int i = 4 * (2 * kk + (q >> 1)) + 2 * (q & 1);
+          split_bf16(s[i] * L[i], s[i + 1] * L[i + 1], mhi[kk][q],
+                     mlo[kk][q]);
+        }
+      hopper::wgmma_fence();
 #pragma unroll
-      for (int t = 0; t < SN; ++t) {
-        const int nt = wn + WN * t;
-        if (nt >= N / 8) continue;
-        uint32_t bv[2];
-        ldmatrix_x2_trans(bv, bs + (kk * 16 + (lane & 15)) * BST + nt * 8);
-        mma_bf16(st[t], ahi, bv[0], bv[1]);
-        mma_bf16(st[t], alo, bv[0], bv[1]);
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t d = hopper::smem_desc(in + kk * 16 * PB * 2, PB * 2);
+        hopper::wgmma_rs_tb<PB>(y, mhi[kk], d, 1);
+        hopper::wgmma_rs_tb<PB>(y, mlo[kk], d, 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(y);
+      keep(mhi);
+      keep(mlo);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&freed[si]);
+
+      // y into X's place once all 8 warps are done with the input slot,
+      // swizzled as the y map's boxes, then one TMA store, which leaves
+      // out rows past S
+      hopper::mbar_wait(&freed[si], (c / NIN) & 1);
+      unsigned char* ys = inputs + si * C::IN;
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int j = 0; j < PB / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(
+              ys + hopper::swizzled(wr + g + 8 * e, (8 * j + 2 * t) * 2,
+                                    PB * 2)) =
+              __floats2bfloat162_rn(y[4 * j + 2 * e], y[4 * j + 2 * e + 1]);
+      hopper::fence_proxy_async();
+      asm volatile("bar.sync 1, 128;\n" ::: "memory");
+      if (issuer) {
+        hopper::tma_store_4d(&p.ymap, ys, p0, c * Q, h, b);
+        hopper::bulk_commit();
       }
     }
-    // Every warp is done with this chunk's buffers, decays and state copy.
-    __syncthreads();
-    write_state();
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int t = 0; t < SN; ++t) {
-    const int nt = wn + WN * t;
-    if (nt >= N / 8) continue;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = wm * 16 + g + 8 * r;
-      *reinterpret_cast<float2*>(p.state + st_base + row * N + nt * 8 +
-                                 tig * 2) =
-          make_float2(st[t][2 * r], st[t][2 * r + 1]);
-    }
+    if (issuer) hopper::bulk_wait();  // y written before the block ends
   }
 }
 
@@ -462,6 +563,22 @@ __global__ void __launch_bounds__(TC_NT) ssd_bf16_kernel(const Params p) {
 // ===========================================================================
 
 constexpr int F_NT = 256;
+
+struct Params {
+  const void* x;
+  const float* a;
+  const void* Bm;
+  const void* Cm;
+  const float* init;  // null: zero initial state
+  void* y;
+  float* state;
+  int B, S, H, P;
+  long long sxb, sxs, sxh;  // xdt strides in elements (P contiguous)
+  long long sab, sas, sah;  // a strides
+  long long sbb, sbs;       // B strides (N contiguous)
+  long long scb, scs;       // C strides (N contiguous)
+};
+
 
 template <int PB, int N>
 struct F32Smem {
@@ -522,7 +639,7 @@ __global__ void __launch_bounds__(F_NT) ssd_f32_kernel(const Params p) {
     }
     if (warp == 0) {
       float v[2];
-      load_decays(p, ag, c, lane, v);
+      load_decays(ag, p.sas, p.S, c, lane, v);
       chunk_decays(v, lane, cum_s, w_s, e_s);
     }
     __syncthreads();
@@ -588,43 +705,53 @@ __global__ void __launch_bounds__(F_NT) ssd_f32_kernel(const Params p) {
   for (int t = 0; t < SPT; ++t) p.state[st_base + tid + F_NT * t] = st[t];
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, int threads, int bytes, int pb,
-                   const Params& p, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
+
+template <int PB, int N>
+cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
+  auto kernel = ssd_f32_kernel<PB, N>;
+  constexpr int bytes = F32Smem<PB, N>::BYTES;
+  const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(p.P / pb, p.H, p.B);
-  kernel<<<grid, threads, bytes, stream>>>(p);
+  kernel<<<dim3(p.P / PB, p.H, p.B), F_NT, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <int PB, int N>
-cudaError_t launch_dtype(int dtype, const Params& p, cudaStream_t st) {
-  if (dtype == 0)
-    return launch(ssd_f32_kernel<PB, N>, F_NT, F32Smem<PB, N>::BYTES, PB, p,
-                  st);
-  if (dtype == 1)
-    return launch(ssd_bf16_kernel<PB, N>, TC_NT, TcSmem<PB, N>::BYTES, PB, p,
-                  st);
-  return cudaErrorInvalidValue;
+cudaError_t launch_bf16(const TmaParams& p, int B, cudaStream_t stream) {
+  using C = Cfg<PB, N>;
+  auto kernel = ssd_bf16_kernel<PB, N>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(p.P / PB, p.H, B), C::NT, C::BYTES, stream>>>(p);
+  return cudaGetLastError();
 }
 
-template <int PB>
-cudaError_t launch_n(int N, int dtype, const Params& p, cudaStream_t st) {
-  if (N == 16) return launch_dtype<PB, 16>(dtype, p, st);
-  if (N == 32) return launch_dtype<PB, 32>(dtype, p, st);
-  if (N == 64) return launch_dtype<PB, 64>(dtype, p, st);
-  if (N == 128) return launch_dtype<PB, 128>(dtype, p, st);
-  return cudaErrorInvalidValue;
+// fn(std::integral_constant<int, N>()) for the state dims built
+template <typename Fn>
+cudaError_t by_n(int N, Fn fn) {
+  switch (N) {
+    case 16:
+      return fn(std::integral_constant<int, 16>());
+    case 32:
+      return fn(std::integral_constant<int, 32>());
+    case 64:
+      return fn(std::integral_constant<int, 64>());
+    case 128:
+      return fn(std::integral_constant<int, 128>());
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  Returns a cudaError_t (0 = the
-// launch was accepted); `dtype` is 0 for float32, 1 for bfloat16 (x, B, C
-// and y; a and the states are f32).  `init` may be null (zero state).  The
-// caller has checked shapes, strides, alignment and dtypes.
+// launch was accepted), or -1 if cuTensorMapEncodeTiled refused a tensor
+// map; `dtype` is 0 for float32, 1 for bfloat16 (x, B, C and y; a and the
+// states are f32).  `init` may be null (zero state).  The caller has
+// checked shapes, strides, alignment and dtypes.
 extern "C" int mamba2_ssd(const void* x, const float* a, const void* Bm,
                           const void* Cm, const float* init, void* y,
                           float* state, int B, int S, int H, int P, int N,
@@ -632,32 +759,44 @@ extern "C" int mamba2_ssd(const void* x, const float* a, const void* Bm,
                           long long sab, long long sas, long long sah,
                           long long sbb, long long sbs, long long scb,
                           long long scs, int dtype, void* stream) {
-  Params p;
-  p.x = x;
-  p.a = a;
-  p.Bm = Bm;
-  p.Cm = Cm;
-  p.init = init;
-  p.y = y;
-  p.state = state;
-  p.B = B;
-  p.S = S;
-  p.H = H;
-  p.P = P;
-  p.sxb = sxb;
-  p.sxs = sxs;
-  p.sxh = sxh;
-  p.sab = sab;
-  p.sas = sas;
-  p.sah = sah;
-  p.sbb = sbb;
-  p.sbs = sbs;
-  p.scb = scb;
-  p.scs = scs;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (P % 32 == 0) return launch_n<32>(N, dtype, p, st);
-  if (P % 16 == 0) return launch_n<16>(N, dtype, p, st);
-  return cudaErrorInvalidValue;
+  if (P % 16 || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
+  if (dtype == 0) {
+    const Params f{x,   a,   Bm,  Cm,  init, y,   state, B,   S,   H, P,
+                   sxb, sxs, sxh, sab, sas,  sah, sbb,   sbs, scb, scs};
+    return by_n(N, [&](auto n) {
+      return P % 32 == 0 ? launch_f32<32, decltype(n)::value>(f, st)
+                         : launch_f32<16, decltype(n)::value>(f, st);
+    });
+  }
+  // bf16: whole heads where P allows, else 32 or 16 columns a block
+  const int pb = P % 64 == 0 ? 64 : P % 32 == 0 ? 32 : 16;
+  const int nsw = N < 64 ? N : 64;
+  TmaParams t;
+  const long long xdims[4] = {P, S, H, B}, xstr[3] = {sxs, sxh, sxb};
+  const long long ystr[3] = {1LL * H * P, P, 1LL * S * H * P};
+  const long long bdims[4] = {N, S, B, 1}, bstr[3] = {sbs, sbb, sbb},
+                  cstr[3] = {scs, scb, scb};
+  if (!hopper::encode_bf16_4d(&t.xmap, x, xdims, xstr, pb, Q) ||
+      !hopper::encode_bf16_4d(&t.ymap, y, xdims, ystr, pb, Q) ||
+      !hopper::encode_bf16_4d(&t.bmap, Bm, bdims, bstr, nsw, Q) ||
+      !hopper::encode_bf16_4d(&t.cmap, Cm, bdims, cstr, nsw, Q))
+    return -1;
+  t.a = a;
+  t.init = init;
+  t.state = state;
+  t.S = S;
+  t.H = H;
+  t.P = P;
+  t.sab = sab;
+  t.sas = sas;
+  t.sah = sah;
+  return by_n(N, [&](auto n) {
+    constexpr int n_ = decltype(n)::value;
+    return pb == 64   ? launch_bf16<64, n_>(t, B, st)
+           : pb == 32 ? launch_bf16<32, n_>(t, B, st)
+                      : launch_bf16<16, n_>(t, B, st);
+  });
 }
 
 extern "C" const char* mamba2_ssd_error_string(int err) {

@@ -87,7 +87,8 @@ def _check(xdt: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
            + Cm.stride()[:-1]) \
             or any(t.data_ptr() % 16 for t in (xdt, Bm, Cm)):
         raise ValueError("strides must be multiples of 8 elements and base "
-                         "pointers 16-byte aligned (16-byte row loads)")
+                         "pointers 16-byte aligned (the bf16 kernel's TMA "
+                         "tensor maps take 16-byte strides)")
     tensors = (xdt, a, Bm, Cm) + (() if init_state is None
                                   else (init_state,))
     if xdt.device.type != "cuda" or any(t.device != xdt.device
@@ -114,6 +115,11 @@ def _launch(xdt, a, Bm, Cm, init_state):
             state.data_ptr(), Bb, S, H, P, N, *xdt.stride()[:3],
             *a.stride(), *Bm.stride()[:2], *Cm.stride()[:2],
             _DTYPES[xdt.dtype], stream)
+    if err == -1:
+        raise RuntimeError("mamba2_ssd: cuTensorMapEncodeTiled refused a "
+                           "tensor map "
+                           f"(xdt {tuple(xdt.shape)} strides {xdt.stride()}, "
+                           f"B strides {Bm.stride()}, C strides {Cm.stride()})")
     if err:
         raise RuntimeError("mamba2_ssd launch failed: "
                            f"{lib.mamba2_ssd_error_string(err).decode()}")

@@ -6,9 +6,10 @@ Pallas ``ssd_fwd`` in interpret mode, over the reference kernel tests'
 sweep (tests/test_kernels.py), with and without an initial state and at
 a ragged S.  The Pallas kernel starts from a zero state and takes S as a
 multiple of its chunk, so the initial-state and ragged cases are held
-against ``ssd_chunked`` alone.  The CUDA kernel is compared with the
-plain version on the card by tests/test_torch_ssd_card.py and by
-chip_smoke.py.
+against ``ssd_chunked`` alone.  The bf16 CUDA kernel's own arithmetic
+(chunk, order, hi + lo splits) is modelled here and held against both.
+The CUDA kernel is compared with the plain version on the card by
+tests/test_torch_ssd_card.py and by chip_smoke.py.
 
 Tolerance: 1e-3 atol = rtol, as in tests/test_kernels.py (f32; the chunk
 size moves the sums by about 4e-5).
@@ -166,3 +167,97 @@ def test_kernel_checks_raise_on_what_it_does_not_take(case, match):
         xdt = torch.zeros(B, S, H, P + 4)[..., :P]
     with pytest.raises(ValueError, match=match):
         ops._check(xdt, a, Bm, Cm, init)
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _split(t):
+    """An f32 tensor as the kernel feeds it to the tensor cores: the
+    nearest bf16 value plus the nearest bf16 value to what that left."""
+    hi = _bf16(t)
+    return hi, _bf16(t - hi)
+
+
+def _kernel_order(xdt, a, Bm, Cm, init=None):
+    """y (rounded to bf16) and the final state of the bf16 CUDA kernel's
+    arithmetic (csrc/ssd.cu), in f32 from bf16-valued x, B, C and f32 a.
+    First the state-free parts of every chunk of 64 rows, which the
+    kernel's output warps compute apart from the chain: the decays (cum,
+    its last value, w = exp(cum_last - cum), exp(cum)), the scores C B^T
+    and M = L o C B^T as a bf16 hi + lo pair, and X o w as a pair.  Then
+    the state chain, one chunk a step: the state as a pair into
+    exp(cum) o (C state^T), plus M X (both pairs summed); then state =
+    exp(cum_last) state + (X o w)^T B.  Rows past S act as a = 0 and
+    x = B = C = 0."""
+    x, a, Bm, Cm = (torch.from_numpy(np.asarray(t, np.float32))
+                    for t in (xdt, a, Bm, Cm))
+    Bb, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = 64
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+    a = torch.nn.functional.pad(a, (0, 0, 0, pad))
+    Bm, Cm = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (Bm, Cm))
+    tril = torch.ones(Q, Q, dtype=torch.bool).tril()
+    parts = []
+    for c in range(nc):
+        rows = slice(c * Q, (c + 1) * Q)
+        xc, bc, cc = x[:, rows], Bm[:, rows], Cm[:, rows]
+        cum = torch.cumsum(a[:, rows], dim=1)                  # (B,Q,H)
+        last = cum[:, -1:]
+        scores = torch.einsum("bin,bjn->bij", cc, bc)
+        L = torch.exp(cum[:, :, None, :] - cum[:, None, :, :])  # (B,i,j,H)
+        M = torch.where(tril[None, :, :, None], L * scores[..., None], 0.0)
+        xw = xc * torch.exp(last - cum)[..., None]
+        parts.append((xc, bc, cc, torch.exp(cum), torch.exp(last[:, 0]),
+                      _split(M), _split(xw)))
+    state = (torch.zeros(Bb, H, P, N) if init is None
+             else torch.from_numpy(np.asarray(init, np.float32)).clone())
+    y = torch.zeros(Bb, nc * Q, H, P)
+    for c, (xc, bc, cc, e, dec, (mh, ml), (wh, wl)) in enumerate(parts):
+        sh, sl = _split(state)
+        off = torch.einsum("bin,bhpn->bihp", cc, sh) \
+            + torch.einsum("bin,bhpn->bihp", cc, sl)
+        diag = torch.einsum("bijh,bjhp->bihp", mh, xc) \
+            + torch.einsum("bijh,bjhp->bihp", ml, xc)
+        y[:, c * Q:(c + 1) * Q] = off * e[..., None] + diag
+        state = state * dec[:, :, None, None] \
+            + torch.einsum("bjhp,bjn->bhpn", wh, bc) \
+            + torch.einsum("bjhp,bjn->bhpn", wl, bc)
+    return _bf16(y[:, :S]).numpy(), state.numpy()
+
+
+@pytest.mark.parametrize("S,with_init", [
+    (40, True), (100, False), (200, True), (256, True), (384, False),
+    (1000, True)])
+def test_kernel_order_matches_plain_and_jax(S, with_init):
+    """The bf16 CUDA kernel's chunk (64 rows) and order, with each f32
+    operand (M, the state, X o w) rounded to a bf16 hi + lo pair, held
+    against ``ssd_ref`` and the JAX package's ``ssd_chunked`` on the same
+    bf16-valued inputs, by chip_smoke.py's bf16 rule (2e-2 of max |want|).
+    S ends inside a chunk (40, 100, 200, 1000), inside a turn of the
+    kernel's ring of two state slots (40, 200) or of three input slots
+    (100), or at the end of a turn of one (256) or of both (384); with
+    and without an initial state.  Decays as in the reference tests,
+    a few strongly negative (down to -10)."""
+    arrays, init = _inputs(6, 2, S, 3, 64, 32)
+    xdt, a, Bm, Cm = arrays
+    xdt, Bm, Cm = (_bf16(torch.from_numpy(t)).numpy() for t in (xdt, Bm, Cm))
+    a = a.copy()
+    a[:, ::37] = -10.0
+    init = init if with_init else None
+    y, state = _kernel_order(xdt, a, Bm, Cm, init)
+    assert np.isfinite(y).all() and np.isfinite(state).all()
+    want = ssd_ref(*map(torch.from_numpy, (xdt, a, Bm, Cm)),
+                   None if init is None else torch.from_numpy(init))
+    jwant = jax_ssd_chunked(*map(jnp.asarray, (xdt, a, Bm, Cm)),
+                            init_state=None if init is None
+                            else jnp.asarray(init))
+    for got, ref in ((y, want[0]), (state, want[1]), (y, jwant[0]),
+                     (state, jwant[1])):
+        ref = np.asarray(ref, np.float32)
+        err = np.abs(got - ref).max() / np.abs(ref).max()
+        assert err <= 2e-2, err

@@ -85,3 +85,53 @@ def test_cuda_kernel_reads_strided_views(dtype):
     want_y, want_state = ops.ssd(xdt, a, Bm, Cm, impl="ref")
     _assert_close(y, want_y, dtype)
     _assert_close(state, want_state, dtype)
+
+
+def _check_case(gen, B, S, H, P, N, dtype, with_init, a=None):
+    dt = getattr(torch, dtype)
+    xdt, a0, Bm, Cm = _inputs(gen, B, S, H, P, N, dt)
+    a = a0 if a is None else a
+    init = (torch.randn((B, H, P, N), generator=gen, device="cuda")
+            if with_init else None)
+    before = ops.launches
+    y, state = ops.ssd(xdt, a, Bm, Cm, init)
+    torch.cuda.synchronize()
+    assert ops.launches == before + 1
+    want_y, want_state = ops.ssd(xdt, a, Bm, Cm, init, impl="ref")
+    assert torch.isfinite(y.float()).all() and torch.isfinite(state).all()
+    _assert_close(y, want_y, dtype)
+    _assert_close(state, want_state, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,P,N", [
+    (3, 1024, 80, 64, 64), (2, 100, 3, 64, 64), (2, 128, 3, 64, 64),
+    (2, 192, 3, 64, 32), (1, 384, 5, 64, 64)])
+@pytest.mark.parametrize("with_init", [False, True])
+def test_cuda_kernel_served_shape_and_ring_edges(dtype, B, S, H, P, N,
+                                                 with_init):
+    """zamba2-2.7b's prefill shape (B3 S1024 H80 P64 N64), and S at the
+    edges of the bf16 kernel's rings of two state slots (128 rows) and
+    three input slots (192 rows): ending inside the first state turn (100),
+    at its end (128), at the end of an input turn (192) and of both (384).
+    A block takes one head, so every H is whole."""
+    _check_case(_card(), B, S, H, P, N, dtype, with_init)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("scale", [1e-4, 10.0])
+def test_cuda_kernel_decays_near_zero_and_strongly_negative(dtype, scale):
+    """Log decays a = -|N(0, scale^2)|: near 0 (no decay over a chunk) and
+    down to about -10 a row and below (the state forgets within a row;
+    exp of the chunk's cumulative sums underflows to 0), with an initial
+    state, against the plain version."""
+    gen = _card()
+    B, S, H, P, N = 2, 300, 4, 64, 64
+    a = -(torch.randn((B, S, H), generator=gen, device="cuda")
+          * scale).abs()
+    if scale > 1:
+        a = a.clamp(min=-40.0)
+        a[:, ::7] = -10.0
+    _check_case(gen, B, S, H, P, N, dtype, True, a)
