@@ -12,7 +12,10 @@ sources (one ``nvcc`` each, started together) and then:
    windowed and non-causal, plus GQA, ragged lengths, head dim 80,
    ring-buffer positions with unwritten (-1) slots (also with S and T
    ragged against the kernel's 128-row tiles, at head dims 80 and 128),
-   strided views and the served attention models' prefill shapes;
+   strided views and the served attention models' prefill shapes; then
+   what training reads of it: its log-sum-exp output at those shapes and
+   the train shape, and the autograd op's gradients with the kernel
+   forward against those with the plain forward;
 3. times the kernel, the plain version and PyTorch's
    ``scaled_dot_product_attention`` (a yardstick only; the port never
    calls it) at qwen3's, granite's and zamba2's prefill shapes (head dims
@@ -55,7 +58,19 @@ sources (one ``nvcc`` each, started together) and then:
    tokens whose top-8 experts agree between the two.  Each run then
    profiles one prefill wave and a few decode steps (device busy time,
    idle share, the heaviest kernels) and frees its model;
-8. prints one JSON line describing every kernel of the path, then, as
+8. trains full-width qwen3-0.6b (28 layers, bf16 weights, f32 AdamW
+   moments) on B4 x S1024 through ``steps.make_train_step``: one step's
+   loss and gradients with the kernels against plain attention from the
+   same weights and batch (bf16 at full width; f32 at 4 layers, where the
+   gradients are held), then timed steps with the flash launches counted
+   (two a layer a step: the forward and its recomputation), peak memory,
+   and a profile of one step with the kernels and one with plain
+   attention; then runs ``launch/train.py``'s ``main`` for 2 steps at
+   full width (one checkpoint), and on the smoke config straight, stopped
+   after its checkpoint at step 4, and resumed, and checks that the
+   resumed run starts at next_batch 4 and gives the straight run's
+   losses;
+9. prints one JSON line describing every kernel of the path, then, as
    the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero.  Without CUDA, or outside a checkout, it
@@ -67,6 +82,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -125,12 +141,55 @@ WKV_SWEEP = [(2, 64, 2, 32), (1, 128, 4, 64), (2, 32, 2, 16)]
 # rwkv6-7b's prefill WKV when serving 3 slots: H = 4096 / 64 heads
 WKV_PREFILL = (3, 1024, 64, 64)
 WKV_CHUNK = 16      # the reference model's chunk, for the bound's count
+# the served attention models' prefill attention heads: (arch, Hq, Hkv, D)
+FLASH_SERVED = [("granite-moe-1b-a400m", 16, 8, 64), ("qwen3-0.6b", 16, 8, 128),
+                ("zamba2-2.7b", 32, 32, 80)]
+# the kernel's log-sum-exp output (the backward's input) against the plain
+# version's, atol = rtol: f32 summation order only (the output's TOL);
+# bf16: both take the same exact products of the bf16 inputs and sum them
+# in f32, the kernel keeps the row max in log2 units and sums the SFU's
+# exp2 (about 2 ulp), so about 1e-5 of an LSE near 10 is expected
+LSE_TOL = {"torch.float32": 5e-5, "torch.bfloat16": 2e-4}
+# dq, dk, dv of the autograd op with the kernel forward against those with
+# the plain forward (the same plain backward), normalised by max |want|:
+# f32, the forwards' summation order; bf16, one or two ulps where the two
+# outputs round apart (the output's TOL)
+GRAD_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2}
 # the attention models whose prefill flash is timed, with their head dims;
 # the kernels line's flash entry leads with the first
 FLASH_TIMED = {"qwen3-0.6b": 128, "granite-moe-1b-a400m": 64,
                "zamba2-2.7b": 80}
 # the port's CUDA kernels, as the profiler names them
 PORT_KERNELS = ("::flash_fwd_", "::gmm_", "::ssd_", "::wkv_")
+
+# the train run: qwen3-0.6b at full width, (B, S) a step, 3 steps timed
+# after one warm-up step
+TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "qwen3-0.6b", 4, 1024, 3
+# one train step's loss and gradients with the kernels against the same
+# step with plain attention (impl="ref"), from the same weights and batch:
+# in bf16 at full width, the loss and grad_norm within 1e-2 relative (the
+# two forwards round the attention output apart by an ulp here and there,
+# and 28 bf16 layers carry that on; each gradient leaf's relative L2
+# difference is printed); the gradients are held in f32 at
+# TRAIN_F32_LAYERS layers, where the kernel's forward differs from plain
+# attention by summation order only: loss and every leaf within 1e-4
+# relative (L2 for the leaves)
+TRAIN_LOSS_RTOL = 1e-2
+TRAIN_F32_RTOL = 1e-4
+TRAIN_F32_LAYERS = 4
+# the launcher (launch/train.py's main): once at full width for
+# LAUNCH_STEPS steps with only its final save (a full-width checkpoint
+# holds 12 bytes a parameter on disk, bf16 widened to f32 and two f32
+# moments, 9.0 GB for qwen3-0.6b: that run takes about 19 s on an H100,
+# most of it the save, and the resume check below would write six);
+# then the save, stop and resume check on the smoke config, on the card:
+# a straight run of RESUME_STEPS steps, and the same run stopped when step
+# RESUME_AT begins (its save at RESUME_AT started, --ckpt-every
+# RESUME_EVERY) and resumed; the resumed run's losses equal the straight
+# run's (1e-5 relative allows a last-bit difference from an order of
+# atomic adds on the card)
+LAUNCH_STEPS = 2
+RESUME_STEPS, RESUME_AT, RESUME_EVERY, RESUME_RTOL = 6, 4, 2, 1e-5
 
 # the serving runs: one GCR engine, more streams than slots
 N_STREAMS, N_SLOTS, PROMPT_LEN, GEN_LEN = 8, 3, 1024, 16
@@ -323,9 +382,7 @@ def flash_kernel_phase(torch, fa, gen):
 
     # the served models' prefill shapes
     errs, inputs = [], {}
-    for arch, Hq, Hkv, D in (("granite-moe-1b-a400m", 16, 8, 64),
-                             ("qwen3-0.6b", 16, 8, 128),
-                             ("zamba2-2.7b", 32, 32, 80)):
+    for arch, Hq, Hkv, D in FLASH_SERVED:
         B, S = N_SLOTS, PROMPT_LEN
         q = rnd((B, S, Hq, D), torch.bfloat16)
         k = rnd((B, S, Hkv, D), torch.bfloat16)
@@ -335,6 +392,73 @@ def flash_kernel_phase(torch, fa, gen):
             torch.bfloat16, q, k, v, arange(S), arange(S), 0, True))
         inputs[arch] = (q, k, v, arange(S), arange(S))
     return max(errs), inputs
+
+
+def flash_train_phase(torch, fa, gen):
+    """What training reads of the kernel: its log-sum-exp output against
+    the plain version's at the served prefill shapes and qwen3-0.6b's
+    train shape, f32 and bf16, with the output asked for with the LSE
+    equal bit for bit to the output without (a null LSE pointer changes
+    nothing else); then the autograd op's dq, dk, dv with the kernel
+    forward against those with the plain forward, at the train shape.
+    Returns the largest LSE error."""
+    def rnd(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+
+    print("kernel phase: the flash kernel's lse and gradients vs plain")
+    shapes = [(arch, N_SLOTS, Hq, Hkv, D) for arch, Hq, Hkv, D
+              in FLASH_SERVED] + [(f"{TRAIN_ARCH} train", TRAIN_B, 16, 8,
+                                   128)]
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        short = str(dtype).replace("torch.", "")
+        tol = LSE_TOL[str(dtype)]
+        for label, B, Hq, Hkv, D in shapes:
+            S = PROMPT_LEN
+            q = rnd((B, S, Hq, D), dtype)
+            k, v = rnd((B, S, Hkv, D), dtype), rnd((B, S, Hkv, D), dtype)
+            pos = torch.arange(S, dtype=torch.int32, device="cuda")
+            before = fa.launches
+            out, lse = fa.flash_attention_fwd(q, k, v, pos, pos,
+                                              return_lse=True)
+            bare = fa.flash_attention_fwd(q, k, v, pos, pos)
+            check(fa.launches == before + 2, "flash did not launch twice")
+            _, want = fa.flash_attention_fwd(q, k, v, pos, pos, impl="ref",
+                                             return_lse=True)
+            check(lse.shape == (B, Hq, S) and lse.dtype == torch.float32,
+                  f"lse is {tuple(lse.shape)} {lse.dtype}")
+            err = (lse - want).abs().max().item()
+            ok = torch.allclose(lse, want, atol=tol, rtol=tol)
+            same = torch.equal(out, bare)
+            print(f"  lse {label} B{B} S=T={S} Hq{Hq} Hkv{Hkv} D{D} {short}"
+                  f": max_abs_err={err:.3e} atol=rtol={tol:g} (max |lse| "
+                  f"{want.abs().max().item():.3f}); output with lse equal "
+                  f"to output without: {same} {'ok' if ok and same else 'FAIL'}")
+            check(ok, f"flash lse disagrees with plain: {label} {short}")
+            check(same, f"asking for the lse changed the output: {label}")
+            worst = max(worst, err)
+
+        q = rnd((TRAIN_B, TRAIN_S, 16, 128), dtype)
+        k, v = (rnd((TRAIN_B, TRAIN_S, 8, 128), dtype) for _ in range(2))
+        dout = rnd((TRAIN_B, TRAIN_S, 16, 128), dtype)
+        pos = torch.arange(TRAIN_S, dtype=torch.int32, device="cuda")
+        grads = {}
+        for impl in ("auto", "ref"):
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = fa.flash_attention_fwd(*leaves, pos, pos, impl=impl)
+            grads[impl] = torch.autograd.grad(out, leaves, dout)
+        tol = GRAD_TOL[str(dtype)]
+        for name, got, want in zip(("dq", "dk", "dv"), grads["auto"],
+                                   grads["ref"]):
+            err = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            ok = err <= tol * scale
+            print(f"  autograd {name} at {TRAIN_ARCH}'s train shape "
+                  f"B{TRAIN_B} S{TRAIN_S} Hq16 Hkv8 D128 {short}, kernel vs "
+                  f"plain forward: max_abs_err={err:.3e} (normalised "
+                  f"{err / scale:.2e}, tol {tol:g}) {'ok' if ok else 'FAIL'}")
+            check(ok, f"flash autograd {name} disagrees: {short}")
+    return worst
 
 
 def flash_timing_phase(torch, fa, arch, inputs):
@@ -967,6 +1091,289 @@ def serve_phase(torch, np, kernels, arch, expect):
     return launches
 
 
+def train_phase(torch, fa):
+    """Train qwen3-0.6b at full width through the port's step builder:
+    one step's loss and gradients with the kernels against plain attention
+    (bf16 at full width, then f32 at TRAIN_F32_LAYERS layers), then
+    TRAIN_STEPS timed steps of ``make_train_step`` (flash launches counted,
+    wall and peak memory), one of them under torch.profiler, and one step
+    with plain attention for comparison.  Returns the flash launches of
+    the timed steps and the train figures."""
+    from repro_torch.config import OptimizerConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels.flash_attention.ref import flash_bwd_ref
+    from repro_torch.models import forward_train, init_params
+    from repro_torch.optim import adamw_update, global_norm
+    from repro_torch.steps import init_train_state, make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    expect = dict(SERVED)[TRAIN_ARCH]
+    check({k: getattr(cfg, k) for k in expect} == expect
+          and cfg.dtype == "bfloat16", f"unexpected {TRAIN_ARCH} config")
+    params, opt = init_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    n_params = sum(p.numel() for p in params.parameters())
+    src = SyntheticTokens(cfg, TRAIN_S, TRAIN_B, seed=0)
+
+    def batch_at(i):
+        return {k: torch.from_numpy(v).to("cuda")
+                for k, v in src.global_batch_at(i).items()}
+
+    def loss_and_grads(model_cfg, model, batch, impl):
+        loss, _ = forward_train(model_cfg, model, batch, impl=impl)
+        named = dict(model.named_parameters())
+        grads = torch.autograd.grad(loss, list(named.values()))
+        return loss.detach(), dict(zip(named, grads))
+
+    def kernels_vs_plain(model_cfg, model, batch):
+        loss_k, g_k = loss_and_grads(model_cfg, model, batch, "auto")
+        loss_r, g_r = loss_and_grads(model_cfg, model, batch, "ref")
+        rel = {name: ((g_k[name].float() - g_r[name].float()).norm()
+                      / g_r[name].float().norm().clamp_min(1e-30)).item()
+               for name in g_r}
+        worst = max(rel, key=rel.get)
+        out = {"loss": (loss_k.item(), loss_r.item()),
+               "grad_norm": (global_norm(g_k).item(),
+                             global_norm(g_r).item()),
+               "worst_leaf": (worst, rel[worst])}
+        del g_k, g_r
+        return out
+
+    def rel_diff(pair):
+        return abs(pair[0] - pair[1]) / abs(pair[1])
+
+    print(f"train phase: {cfg.name} {n_params / 1e6:.1f}M params, bf16 "
+          f"weights, f32 AdamW moments, B{TRAIN_B} S{TRAIN_S}")
+    batch = batch_at(0)
+    cmp = kernels_vs_plain(cfg, params, batch)
+    print(f"  one step, kernels vs plain attention (bf16, {cfg.n_layers} "
+          f"layers): loss {cmp['loss'][0]:.6f} vs {cmp['loss'][1]:.6f} "
+          f"(rel {rel_diff(cmp['loss']):.2e}, tol {TRAIN_LOSS_RTOL:g}); "
+          f"grad_norm {cmp['grad_norm'][0]:.6f} vs {cmp['grad_norm'][1]:.6f}"
+          f" (rel {rel_diff(cmp['grad_norm']):.2e}, tol "
+          f"{TRAIN_LOSS_RTOL:g}); largest relative L2 difference of a "
+          f"gradient leaf {cmp['worst_leaf'][1]:.3e} ({cmp['worst_leaf'][0]})")
+    check(rel_diff(cmp["loss"]) <= TRAIN_LOSS_RTOL, "bf16 train loss differs")
+    check(rel_diff(cmp["grad_norm"]) <= TRAIN_LOSS_RTOL,
+          "bf16 grad_norm differs")
+
+    cfg32 = dataclasses.replace(cfg, n_layers=TRAIN_F32_LAYERS,
+                                dtype="float32")
+    model32 = init_params(cfg32, torch.Generator(device="cuda").manual_seed(1),
+                          "cuda").requires_grad_(True)
+    cmp32 = kernels_vs_plain(cfg32, model32, batch)
+    del model32
+    print(f"  one step, kernels vs plain attention (f32, {TRAIN_F32_LAYERS} "
+          f"layers): loss rel {rel_diff(cmp32['loss']):.2e}, largest "
+          f"relative L2 difference of a gradient leaf "
+          f"{cmp32['worst_leaf'][1]:.3e} ({cmp32['worst_leaf'][0]}), tol "
+          f"{TRAIN_F32_RTOL:g}")
+    check(rel_diff(cmp32["loss"]) <= TRAIN_F32_RTOL
+          and cmp32["worst_leaf"][1] <= TRAIN_F32_RTOL,
+          "f32 train gradients differ")
+
+    opt_cfg = OptimizerConfig(warmup_steps=1, total_steps=100)
+    steps = {impl: make_train_step(cfg, opt_cfg, impl=impl)
+             for impl in ("auto", "ref")}
+    state = [params, opt]
+
+    def step(i, impl="auto"):
+        state[0], state[1], metrics = steps[impl](*state, batch_at(i), i)
+        return metrics
+
+    step(0)                                               # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = 0                          # count the main path alone
+    walls, losses = [], []
+    for i in range(1, 1 + TRAIN_STEPS):
+        t = time.perf_counter()
+        metrics = step(i)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+        losses.append(metrics["loss"].item())
+    launches = fa.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = 2 * cfg.n_layers * TRAIN_STEPS
+    print(f"  {TRAIN_STEPS} steps: losses {[round(x, 6) for x in losses]}, "
+          f"grad_norm {metrics['grad_norm'].item():.4f}, lr "
+          f"{metrics['lr'].item():.3e}; flash launches {launches} (want "
+          f"{want}: {cfg.n_layers} layers x 2 under remat x {TRAIN_STEPS} "
+          "steps)")
+    check(launches == want, f"flash launches {launches} != {want}")
+    check(all(map(math.isfinite, losses)), "non-finite train loss")
+    wall_ms = statistics.median(walls)
+    print(f"  step wall ms {[round(w, 3) for w in walls]} (median "
+          f"{wall_ms:.3f}); peak memory allocated {peak_gb:.2f} GB")
+
+    figures = {"wall_ms": wall_ms, "peak_gb": peak_gb}
+    for impl, n in (("auto", TRAIN_STEPS + 1), ("ref", TRAIN_STEPS + 2)):
+        t = time.perf_counter()
+        step(n, impl)
+        torch.cuda.synchronize()
+        impl_wall = (time.perf_counter() - t) * 1e3
+        busy, n_kernels, flash_ms = profiled_ms(torch, lambda: step(n + 2,
+                                                                    impl))
+        label = "kernels" if impl == "auto" else "plain attention"
+        print(f"  profile train step ({label}): wall {impl_wall:.3f} ms, "
+              f"device busy {busy:.3f} ms, idle share "
+              f"{max(0.0, 1 - busy / impl_wall):.3f}, {n_kernels} kernels; "
+              f"flash kernel {flash_ms:.3f} ms a step")
+        figures[impl] = {"wall_ms": impl_wall, "busy_ms": busy,
+                         "flash_ms": flash_ms}
+
+    # the optimizer alone: AdamW over every leaf, as the step runs it
+    zeros = {name: torch.zeros_like(p)
+             for name, p in state[0].named_parameters()}
+
+    def optimizer():
+        adamw_update(zeros, state[1], state[0], opt_cfg)
+
+    opt_walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        optimizer()
+        torch.cuda.synchronize()
+        opt_walls.append((time.perf_counter() - t) * 1e3)
+    opt_busy = device_ms(torch, optimizer, 3)
+    print(f"  AdamW alone ({len(zeros)} leaves): wall "
+          f"{statistics.median(opt_walls):.3f} ms, device busy "
+          f"{opt_busy:.3f} ms")
+    figures["adamw"] = {"wall_ms": statistics.median(opt_walls),
+                        "busy_ms": opt_busy}
+    del zeros
+
+    # the attention backward alone (plain PyTorch), at the step's shape
+    q = torch.randn((TRAIN_B, TRAIN_S, 16, 128), device="cuda",
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((TRAIN_B, TRAIN_S, 8, 128), device="cuda",
+                        dtype=torch.bfloat16) for _ in range(2))
+    pos = torch.arange(TRAIN_S, dtype=torch.int32, device="cuda")
+    out, lse = fa.flash_attention_fwd(q, k, v, pos, pos, return_lse=True)
+    bwd_ms = device_ms(torch, lambda: flash_bwd_ref(q, k, v, pos, pos, out,
+                                                    lse, out), 5)
+    print(f"  flash backward (plain PyTorch) {bwd_ms:.3f} ms a layer, "
+          f"{bwd_ms * cfg.n_layers:.3f} ms a step "
+          f"({bwd_ms * cfg.n_layers / figures['auto']['busy_ms']:.1%} of "
+          "the step's device busy)")
+    figures["flash_bwd_ms"] = bwd_ms * cfg.n_layers
+    del state, params, opt, steps
+    return launches, figures
+
+
+def profiled_ms(torch, work):
+    """(device busy ms, kernels, flash kernel ms) of one ``work()`` under
+    torch.profiler; prints the six heaviest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        work()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(bool(kernels), "the profiler saw no device time")
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) \
+            + e.time_range.elapsed_us() / 1e3
+    for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"    {ms:9.3f} ms {ms / busy:6.1%}  {kname[:90]}")
+    flash = sum(ms for kname, ms in by_name.items() if "flash_fwd_" in kname)
+    return busy, len(kernels), flash
+
+
+def train_launcher_phase(torch):
+    """``repro_torch.launch.train.main`` on the card: LAUNCH_STEPS steps at
+    full width, which write one checkpoint; then, on the smoke config, a
+    straight run of RESUME_STEPS steps; the same run stopped as step
+    RESUME_AT begins, after its checkpoint at RESUME_AT was started; then
+    resumed.  The resumed run must start at next_batch RESUME_AT and give
+    the straight run's losses."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launcher
+
+    base = ["--arch", TRAIN_ARCH, "--device", "cuda", "--batch",
+            str(TRAIN_B), "--seq", str(TRAIN_S)]
+    args = base + ["--smoke", "--steps", str(RESUME_STEPS), "--ckpt-every",
+                   str(RESUME_EVERY)]
+
+    class Stop(Exception):
+        pass
+
+    make_train_step = launcher.make_train_step
+
+    def stopping_step_builder(*a, **kw):
+        fn = make_train_step(*a, **kw)
+
+        def train_step(params, opt, batch, i):
+            if i == RESUME_AT:
+                raise Stop
+            return fn(params, opt, batch, i)
+        return train_step
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        full = base + ["--steps", str(LAUNCH_STEPS), "--ckpt-every",
+                       str(LAUNCH_STEPS + 1), "--ckpt-dir", f"{tmp}/full"]
+        print(f"train launcher phase: {' '.join(full)}")
+        t = time.perf_counter()
+        losses = launcher.main(full)
+        wall_s = time.perf_counter() - t
+        _, state, extra = CheckpointManager(f"{tmp}/full").restore()
+        print(f"  losses {losses}; {wall_s:.1f} s with its checkpoint at "
+              f"step {extra['next_batch']}")
+        check(len(losses) == LAUNCH_STEPS
+              and all(map(math.isfinite, losses))
+              and extra["next_batch"] == LAUNCH_STEPS
+              and state["params"]["embed"].shape[0]
+              == get_config(TRAIN_ARCH).vocab_padded,
+              "the full-width launcher run went wrong")
+        del state
+        free_model(torch)
+
+        print(f"train launcher phase: {' '.join(args)}")
+        t = time.perf_counter()
+        straight = launcher.main(args + ["--ckpt-dir", f"{tmp}/straight"])
+        print(f"  straight run: losses {straight} "
+              f"({time.perf_counter() - t:.1f} s)")
+        free_model(torch)
+        launcher.make_train_step = stopping_step_builder
+        t = time.perf_counter()
+        try:
+            launcher.main(args + ["--ckpt-dir", f"{tmp}/resumed"])
+            check(False, "the stopped run did not stop")
+        except Stop:
+            pass
+        finally:
+            launcher.make_train_step = make_train_step
+        free_model(torch)
+        mgr = CheckpointManager(f"{tmp}/resumed")
+        latest = mgr.latest_step()
+        _, _, extra = mgr.restore(latest)
+        print(f"  stopped as step {RESUME_AT} began "
+              f"({time.perf_counter() - t:.1f} s): latest checkpoint step "
+              f"{latest}, next_batch {extra['next_batch']}")
+        check(latest == RESUME_AT and extra["next_batch"] == RESUME_AT,
+              "the stopped run's last checkpoint is not the expected one")
+        t = time.perf_counter()
+        resumed = launcher.main(args + ["--ckpt-dir", f"{tmp}/resumed"])
+        free_model(torch)
+        want = straight[RESUME_AT:]
+        ok = len(resumed) == len(want) and all(
+            abs(a - b) <= RESUME_RTOL * abs(b) for a, b in zip(resumed, want))
+        print(f"  resumed run: losses {resumed} against the straight run's "
+              f"{want} (rtol {RESUME_RTOL:g}) "
+              f"({time.perf_counter() - t:.1f} s) {'ok' if ok else 'FAIL'}")
+        check(ok, "the resumed run's losses differ from the straight run's")
+
+
 def free_model(torch) -> None:
     """Give the last model's memory back before the next one loads."""
     gc.collect()
@@ -1067,6 +1474,7 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     flash_err, inputs = flash_kernel_phase(torch, fa, gen)
+    lse_err = flash_train_phase(torch, fa, gen)
     torch.cuda.synchronize()
     flash_times = {arch: flash_timing_phase(torch, fa, arch, inputs[arch])
                    for arch in FLASH_TIMED}
@@ -1086,6 +1494,13 @@ def main() -> int:
             launches[kernel] += n
     free_model(torch)
     print(f"launches over the {len(SERVED)} serve runs: {launches}")
+    train_launches, train = train_phase(torch, fa)
+    free_model(torch)
+    train_launcher_phase(torch)
+    serve_flash = launches["flash"]
+    launches["flash"] += train_launches
+    print(f"flash launches: {serve_flash} serving, {train_launches} in the "
+          f"{TRAIN_STEPS} timed train steps")
 
     print(card_line())
     print(json.dumps({"kernels": [{
@@ -1094,11 +1509,16 @@ def main() -> int:
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:78",
         "launches": launches["flash"],
+        "launches_by_path": {"serve": serve_flash, "train": train_launches},
         "max_abs_err": flash_err,
+        "lse_max_abs_err": lse_err,
         **flash_times["qwen3-0.6b"],
         # the same figures at every served head dim (granite 64, zamba2 80)
         "by_shape": [{"arch": arch, "head_dim": d, **flash_times[arch]}
                      for arch, d in FLASH_TIMED.items()],
+        # the train step (host clock, profiler busy, flash ms a step) with
+        # the kernels and with plain attention; the plain backward a step
+        "train": train,
     }, {
         "name": "moe_gmm",
         "route": "cuda",

@@ -1,0 +1,5 @@
+"""Atomic, asynchronous checkpoints in the reference's on-disk format."""
+
+from .manager import CheckpointManager
+
+__all__ = ["CheckpointManager"]

@@ -1,9 +1,10 @@
-"""Model configuration: the port's own copy of ``repro.config.ModelConfig``.
+"""Configuration: the port's own copy of ``repro.config``'s ``ModelConfig``,
+``ShapeSpec`` and ``OptimizerConfig``.
 
 Fields and defaults are copied field for field, so a configuration file
 reads the same in both packages; only the derived values the port uses
 (``head_dim``, ``vocab_padded``, ``d_inner``, ``ssm_heads``,
-``rwkv_heads``) are carried over.  Training, mesh and hardware configs
+``rwkv_heads``) are carried over.  The runtime, mesh and hardware configs
 belong to later slices.
 """
 
@@ -89,3 +90,26 @@ class ModelConfig:
     @property
     def rwkv_heads(self) -> int:
         return self.d_model // self.rwkv_head_dim
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str    # "train" | "prefill" | "decode"
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adamw"
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    zero1: bool = True             # shard optimizer state over the data axis
+    grad_compression: str = "none"  # none | int8  (cross-pod hop)

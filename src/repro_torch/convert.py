@@ -10,12 +10,15 @@ and the unstacked
 numpy has no bf16, so arrays arrive widened to f32 and are cast to each
 parameter's dtype on the way in: the model's dtype, and f32 for the MoE
 router, Mamba2's A_log, dt_bias and D and RWKV6's decay_w0 and bonus_u,
-as in the reference.
+as in the reference.  ``params_to_numpy`` goes the other way (bf16
+widened to f32, exactly), and ``opt_state_to_numpy`` /
+``opt_state_from_numpy`` carry the AdamW state, whose moments mirror the
+parameter tree.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -39,36 +42,131 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+def _tree_key(name: str):
+    """A parameter name -> (its key in the flattened reference tree, its
+    index on the stacked layer axis or None)."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        return ".".join(["layers"] + parts[2:]), int(parts[1])
+    return name, None
+
+
+def _from_tree(module: nn.Module, tree: Mapping,
+               put: Callable[[str, torch.Tensor, np.ndarray], None]) -> None:
+    """Call ``put(name, param, array)`` for each parameter of ``module``
+    with its array in the reference-layout ``tree``.  Raises unless the
+    names and shapes match exactly."""
+    flat = _flatten(tree)
+    seen = set()
+    for name, param in module.named_parameters():
+        key, layer = _tree_key(name)
+        if key not in flat:
+            raise KeyError(f"{key} missing from the numpy tree")
+        arr = np.asarray(flat[key])
+        if layer is not None:
+            arr = arr[layer]
+        if tuple(arr.shape) != tuple(param.shape):
+            raise ValueError(f"{name}: numpy shape {arr.shape} != "
+                             f"{tuple(param.shape)}")
+        put(name, param, arr)
+        seen.add(key)
+    extra = set(flat) - seen
+    if extra:
+        raise KeyError(f"numpy tree has names the module lacks: "
+                       f"{sorted(extra)}")
+
+
+def _to_tree(module: nn.Module, value: Callable[[str, torch.Tensor],
+                                                torch.Tensor]) -> Dict:
+    """The reference-layout nested dict of ``value(name, param)`` for each
+    parameter of ``module``, on its device: per-layer values stacked on a
+    leading layer axis under ``layers`` (copies), the others as they are
+    (the live tensors, detached)."""
+    flat: Dict[str, list] = {}
+    for name, param in module.named_parameters():
+        key, _ = _tree_key(name)
+        flat.setdefault(key, []).append(value(name, param).detach())
+    tree: Dict = {}
+    for key, vals in flat.items():
+        *path, leaf = key.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = torch.stack(vals) if path[:1] == ["layers"] else vals[0]
+    return tree
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t``; bf16 (which numpy lacks) widened to f32,
+    which holds every bf16 value exactly."""
+    dtype = torch.float32 if t.dtype == torch.bfloat16 else t.dtype
+    return t.detach().to("cpu", dtype, copy=True).numpy()
+
+
+def _numpy(tree: Mapping) -> Dict:
+    return {k: _numpy(v) if isinstance(v, Mapping) else to_numpy(v)
+            for k, v in tree.items()}
+
+
 @torch.no_grad()
 def load_numpy_(module: nn.Module, tree: Mapping) -> nn.Module:
     """Copy a nested dict of numpy arrays into ``module``'s parameters, in
     place.  A ``layers`` subtree is stacked on its leading axis and fills
     ``module.layers[i]``.  Raises unless the names and shapes match
     exactly."""
-    flat = _flatten(tree)
-    seen = set()
-    for name, param in module.named_parameters():
-        parts = name.split(".")
-        if parts[0] == "layers":
-            key = ".".join(["layers"] + parts[2:])
-            if key not in flat:
-                raise KeyError(f"{key} missing from the numpy tree")
-            arr = np.asarray(flat[key])[int(parts[1])]
-        else:
-            key = name
-            if key not in flat:
-                raise KeyError(f"{key} missing from the numpy tree")
-            arr = np.asarray(flat[key])
-        if tuple(arr.shape) != tuple(param.shape):
-            raise ValueError(f"{name}: numpy shape {arr.shape} != "
-                             f"{tuple(param.shape)}")
-        param.copy_(torch.from_numpy(np.array(arr, np.float32)))
-        seen.add(key)
-    extra = set(flat) - seen
-    if extra:
-        raise KeyError(f"numpy tree has names the module lacks: "
-                       f"{sorted(extra)}")
+    _from_tree(module, tree, lambda name, param, arr: param.copy_(
+        torch.from_numpy(np.array(arr, np.float32))))
     return module
+
+
+def params_to_tree(module: nn.Module) -> Dict:
+    """``module``'s parameters in the reference's layout, in their own
+    dtypes and on their device (``layers`` stacked on a leading layer
+    axis); leaves that are not stacked are the live parameters."""
+    return _to_tree(module, lambda name, param: param)
+
+
+def params_to_numpy(module: nn.Module) -> Dict:
+    """The inverse of ``load_numpy_``: ``module``'s parameters as the
+    reference's ``init_params`` pytree of numpy arrays, bf16 widened to
+    f32."""
+    return _numpy(params_to_tree(module))
+
+
+def opt_state_to_tree(opt_state: Dict, params: nn.Module) -> Dict:
+    """The port's AdamW state (moments keyed by parameter name) in the
+    reference's ``adamw_init`` layout: ``{"m": tree, "v": tree, "count":
+    int32}``, each moment tree shaped like the parameters' (as
+    ``params_to_tree``)."""
+    return {"m": _to_tree(params, lambda name, p: opt_state["m"][name]),
+            "v": _to_tree(params, lambda name, p: opt_state["v"][name]),
+            "count": opt_state["count"].detach()}
+
+
+def opt_state_to_numpy(opt_state: Dict, params: nn.Module) -> Dict:
+    """``opt_state_to_tree`` as numpy arrays (moments f32, count int32)."""
+    return _numpy(opt_state_to_tree(opt_state, params))
+
+
+@torch.no_grad()
+def opt_state_from_numpy(tree: Mapping, params: nn.Module) -> Dict:
+    """The reference's AdamW state (numpy) -> the port's, on the
+    parameters' device: f32 moments keyed by parameter name, an int32
+    count."""
+    def moments(sub: Mapping) -> Dict[str, torch.Tensor]:
+        out: Dict[str, torch.Tensor] = {}
+
+        def put(name, param, arr):
+            out[name] = torch.tensor(np.asarray(arr, np.float32),
+                                     device=param.device)
+
+        _from_tree(params, sub, put)
+        return out
+
+    device = next(params.parameters()).device
+    return {"m": moments(tree["m"]), "v": moments(tree["v"]),
+            "count": torch.tensor(int(np.asarray(tree["count"])),
+                                  dtype=torch.int32, device=device)}
 
 
 def params_from_numpy(tree: Mapping, cfg: ModelConfig, device=None,

@@ -15,6 +15,13 @@
 // are fully masked so far (max(m, -1e29), denominator max(l, 1e-30)).  A
 // row that stays fully masked gives zeros.
 //
+// Optionally also the log-sum-exp of each row's scaled scores, which the
+// backward pass (plain PyTorch, as the reference's is plain XLA) reads to
+// recompute the probabilities: lse (B,Hq,S) f32, in natural-log units,
+// max(m, -1e29) + log(max(l, 1e-30)) as _flash_fwd_impl returns it.  A
+// null lse pointer writes nothing.  It is stored once a row, by a thread
+// that already holds the row's m and l.
+//
 // Layout: q (B,S,Hq,D), k/v (B,T,Hkv,D) with any strides on B, S and H and
 // D contiguous; out (B,S,Hq,D) contiguous, in q's dtype (f32 or bf16).
 // D is one of 16, 32, 64, 80, 128 (the reduced and the published head dims;
@@ -93,6 +100,7 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // The C interface's arguments.
 struct Params {
@@ -100,6 +108,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B,Hq,S) or null
   const int* q_pos;
   const int* k_pos;
   int B, S, T, Hq, Hkv;
@@ -148,6 +157,7 @@ struct TmaParams {
   // [0]: head dims 0 .. W0-1; [1]: W0 .. D-1 (D 80 and 128 only); o's
   // boxes are 64 rows, one consumer group's
   CUtensorMap q[2], k[2], v[2], o[2];
+  float* lse;  // (B,Hq,S) or null
   const int* q_pos;
   const int* k_pos;
   int B, S, T, Hq, Hkv, window, causal;
@@ -753,6 +763,16 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       const int row[2] = {row0, row0 + 8};
       const float inv[2] = {1.f / fmaxf(l[0], 1e-30f),
                             1.f / fmaxf(l[1], 1e-30f)};
+      // m is in log2 units, already scaled: back to natural units before
+      // the reference's guard; the four lanes of a row hold the same m, l
+      if (p.lse != nullptr && tq == 0) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          if (q0 + row[r] < p.S)
+            p.lse[(static_cast<long long>(b) * p.Hq + h) * p.S + q0 +
+                  row[r]] = fmaxf(m[r] * LN2, -1e29f) +
+                            logf(fmaxf(l[r], 1e-30f));
+      }
       unsigned char* qs = smem + L::Q + qb * L::Q_BYTES;
       acc.stage(qs, row, tq, inv);
       hopper::fence_proxy_async();
@@ -972,6 +992,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_f32_kernel(const Params p) {
     const int r = rg * 4 + i;
     if (r >= nrows) continue;
     const float denom = fmaxf(l_s[r], 1e-30f);
+    if (p.lse != nullptr && cg == 0)  // m and l in natural units
+      p.lse[(static_cast<long long>(b) * p.Hq + h) * p.S + q0 + r] =
+          fmaxf(m_s[r], -1e29f) + logf(denom);
     float* orow = og + ((static_cast<long long>(b) * p.S + q0 + r) * p.Hq + h) * D;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) orow[cg + 16 * j] = acc[i][j] / denom;
@@ -1017,6 +1040,7 @@ int launch_bf16(const Params& a, cudaStream_t stream) {
          hopper::encode_bf16_4d(&p.v[1], a.v, kdims, vstr, L::W1, WG_BK) &&
          hopper::encode_bf16_4d(&p.o[1], a.o, qdims, ostr, L::W1, 64);
   if (!ok) return ERR_TENSOR_MAP;
+  p.lse = a.lse;
   p.q_pos = a.q_pos;
   p.k_pos = a.k_pos;
   p.B = a.B;
@@ -1047,13 +1071,14 @@ int launch_bf16(const Params& a, cudaStream_t stream) {
 
 // Plain C interface, loaded with ctypes.  Returns 0 when the launch was
 // accepted, else a cudaError_t or ERR_TENSOR_MAP (-1); `dtype` is 0 for
-// float32, 1 for bfloat16.  The caller has checked shapes, strides and
-// dtypes; for bfloat16 it has also checked what TMA needs: 16-byte
-// aligned bases and strides of B, S and H that are multiples of 8
-// elements.
+// float32, 1 for bfloat16; `lse` is a contiguous f32 (B,Hq,S) or null.
+// The caller has checked shapes, strides and dtypes; for bfloat16 it has
+// also checked what TMA needs: 16-byte aligned bases and strides of B, S
+// and H that are multiples of 8 elements.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
-                         void* o, const int* q_pos, const int* k_pos, int B,
-                         int S, int T, int Hq, int Hkv, int D, long long sqb,
+                         void* o, float* lse, const int* q_pos,
+                         const int* k_pos, int B, int S, int T, int Hq,
+                         int Hkv, int D, long long sqb,
                          long long sqs, long long sqh, long long skb,
                          long long sks, long long skh, long long svb,
                          long long svs, long long svh, int window,
@@ -1063,6 +1088,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   p.k = k;
   p.v = v;
   p.o = o;
+  p.lse = lse;
   p.q_pos = q_pos;
   p.k_pos = k_pos;
   p.B = B;

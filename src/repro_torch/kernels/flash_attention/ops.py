@@ -5,6 +5,12 @@ tensor launches the kernel in ``csrc/flash_fwd.cu`` or raises: there is no
 fallback.  ``impl="ref"`` asks for the plain version explicitly, for the
 tests and for comparing the kernel with it on the card.
 
+When grad is enabled and q, k or v requires it, the forward runs inside
+``FlashAttention``, a ``torch.autograd.Function``: the same kernel (or the
+plain version) with its log-sum-exp output, and as the backward
+``ref.flash_bwd_ref``, plain PyTorch, as the reference's backward
+(``repro.models.layers._fa_bwd``) is plain XLA.
+
 The bf16 kernel reads q, k and v through TMA, which needs 16-byte
 aligned bases and strides; ``tma_strides`` says whether a tensor meets
 that, and ``tma_operands`` hands the kernel a contiguous copy of one that
@@ -22,7 +28,7 @@ from pathlib import Path
 import torch
 
 from .. import _build
-from .ref import attention_ref
+from .ref import attention_ref, flash_bwd_ref
 
 launches = 0
 
@@ -74,7 +80,7 @@ def _kernel():
     lib = _build.load("flash_fwd", _SOURCES)
     fn = lib.flash_fwd
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p] * 6 + [i] * 6 + [ll] * 9 + [i] * 3 + [p]
+    fn.argtypes = [p] * 7 + [i] * 6 + [ll] * 9 + [i] * 3 + [p]
     fn.restype = ctypes.c_int
     lib.flash_fwd_error_string.argtypes = [ctypes.c_int]
     lib.flash_fwd_error_string.restype = ctypes.c_char_p
@@ -122,7 +128,10 @@ def _check(q, k, v, q_pos, k_pos) -> None:
                              f"({n},), got {pos.dtype} {tuple(pos.shape)}")
 
 
-def _launch(q, k, v, q_pos, k_pos, window: int, causal: bool):
+def _launch(q, k, v, q_pos, k_pos, window: int, causal: bool,
+            want_lse: bool = False):
+    """The kernel's output, and with ``want_lse`` also its (B,Hq,S) f32
+    log-sum-exp."""
     global launches
     _check(q, k, v, q_pos, k_pos)
     B, S, Hq, D = q.shape
@@ -136,10 +145,13 @@ def _launch(q, k, v, q_pos, k_pos, window: int, causal: bool):
         sq, sk, sv = (t.stride()[:3] for t in (q, k, v))
     lib = _kernel()
     out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+           if want_lse else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             q_pos.data_ptr(), k_pos.data_ptr(), B, S, T, Hq, Hkv, D,
             *sq, *sk, *sv, int(window), int(bool(causal)), _DTYPES[q.dtype],
             stream)
@@ -147,18 +159,59 @@ def _launch(q, k, v, q_pos, k_pos, window: int, causal: bool):
         raise RuntimeError("flash_fwd launch failed: "
                            f"{lib.flash_fwd_error_string(err).decode()}")
     launches += 1
-    return out
+    return (out, lse) if want_lse else out
+
+
+def _forward(q, k, v, q_pos, k_pos, window: int, causal: bool, impl: str,
+             want_lse: bool):
+    if impl == "ref" or (impl == "auto" and q.device.type == "cpu"):
+        return attention_ref(q, k, v, q_pos, k_pos, window, causal,
+                             return_lse=want_lse)
+    if impl != "auto":
+        raise ValueError(f"unknown impl {impl!r}; expected auto | ref")
+    return _launch(q, k, v, q_pos, k_pos, window, causal, want_lse)
+
+
+class FlashAttention(torch.autograd.Function):
+    """The reference's ``_fa`` custom VJP: the forward saves (q, k, v,
+    positions, out, lse), the backward recomputes the probabilities block
+    by block (``flash_bwd_ref``).  Returns (out, lse); lse carries no
+    gradient.  The positions are integers and get none (the reference's
+    float0 zeros)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, window: int, causal: bool,
+                impl: str):
+        out, lse = _forward(q, k, v, q_pos, k_pos, window, causal, impl,
+                            True)
+        ctx.save_for_backward(q, k, v, q_pos, k_pos, out, lse)
+        ctx.window, ctx.causal = window, causal
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, q_pos, k_pos, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd_ref(q, k, v, q_pos, k_pos, out, lse, dout,
+                                   ctx.window, ctx.causal)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention_fwd(q, k, v, q_pos, k_pos, *, window: int = 0,
-                        causal: bool = True, impl: str = "auto"):
+                        causal: bool = True, impl: str = "auto",
+                        return_lse: bool = False):
     """q: (B,S,Hq,D); k,v: (B,T,Hkv,D); int32 q_pos (S,), k_pos (T,).
-    Returns (B,S,Hq,D) in q's dtype.  impl: auto | ref."""
-    if impl == "ref" or (impl == "auto" and q.device.type == "cpu"):
-        return attention_ref(q, k, v, q_pos, k_pos, window, causal)
-    if impl != "auto":
-        raise ValueError(f"unknown impl {impl!r}; expected auto | ref")
-    return _launch(q, k, v, q_pos, k_pos, window, causal)
+    Returns (B,S,Hq,D) in q's dtype, and with ``return_lse`` also the
+    rows' log-sum-exp, f32 (B,Hq,S).  impl: auto | ref.  Differentiable
+    (through ``FlashAttention``) when grad is enabled and q, k or v
+    requires grad."""
+    window, causal = int(window), bool(causal)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        out, lse = FlashAttention.apply(q, k, v, q_pos, k_pos, window,
+                                        causal, impl)
+        return (out, lse) if return_lse else out
+    return _forward(q, k, v, q_pos, k_pos, window, causal, impl, return_lse)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,

@@ -1,0 +1,113 @@
+"""Training launcher: ``python -m repro_torch.launch.train --arch <id>
+[--smoke] [--device cuda|cpu] [...]``.
+
+The reference launcher's loop on one device: a GCR-locked prefetch
+pipeline feeds the train step (AdamW, each block recomputed in the
+backward pass, optional microbatching), the loss is printed every 10
+steps, async atomic checkpoints are written every ``--ckpt-every`` steps
+and at the end, and a run resumes from the newest checkpoint in
+``--ckpt-dir`` at its ``next_batch``.  Without ``--device`` it runs on
+CUDA and raises where there is none.  The reference's mesh flags
+(``--model-parallel``, ``--production-mesh``) belong to the multi-device
+slice.  Dense (``attn``) archs only so far.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import tempfile
+import time
+from typing import List, Optional, Sequence
+
+import torch
+
+from .. import resolve_device
+from ..checkpoint import CheckpointManager
+from ..config import OptimizerConfig
+from ..configs import ARCHS, get_config, get_smoke_config
+from ..convert import (load_numpy_, opt_state_from_numpy, opt_state_to_tree,
+                       params_to_tree)
+from ..data import PrefetchPipeline, SyntheticTokens
+from ..steps import init_train_state, make_train_step
+
+
+def main(argv: Optional[Sequence[str]] = None) -> List[float]:
+    """Runs the loop; returns the loss of each step this run took, in
+    order."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True, choices=ARCHS)
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced config (CPU-friendly)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu; cuda raises if absent")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    params, opt = init_train_state(
+        cfg, torch.Generator(device=device).manual_seed(args.seed), device)
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"arch={cfg.name} params={n_params / 1e6:.1f}M device={device}")
+
+    opt_cfg = OptimizerConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),
+                              total_steps=args.steps)
+    step_fn = make_train_step(cfg, opt_cfg, microbatches=args.microbatches)
+
+    ckpt_dir = args.ckpt_dir or os.path.join(tempfile.gettempdir(),
+                                             f"repro_torch_{cfg.name}")
+    mgr = CheckpointManager(ckpt_dir, keep=2, async_save=True)
+    start = 0
+    if mgr.latest_step() is not None:
+        step, state, extra = mgr.restore()
+        load_numpy_(params, state["params"])
+        opt = opt_state_from_numpy(state["opt"], params)
+        start = int(extra.get("next_batch", step))
+        print(f"resumed from step {step} at next_batch {start}")
+
+    def train_state():
+        return {"params": params_to_tree(params),
+                "opt": opt_state_to_tree(opt, params)}
+
+    src = SyntheticTokens(cfg, seq_len=args.seq, global_batch=args.batch,
+                          seed=args.seed)
+    pipe = PrefetchPipeline(src, depth=4, workers=2, start_at=start,
+                            use_gcr=True)
+    losses = []
+    t0 = time.perf_counter()
+    tokens_done = 0
+    try:
+        for i, batch in iter(pipe):
+            if i >= args.steps:
+                break
+            batch = {k: torch.from_numpy(v).to(device)
+                     for k, v in batch.items()}
+            params, opt, metrics = step_fn(params, opt, batch, i)
+            losses.append(metrics["loss"])
+            tokens_done += args.batch * args.seq
+            if (i + 1) % 10 == 0:
+                dt = time.perf_counter() - t0
+                print(f"step {i+1:5d} loss {float(metrics['loss']):.4f} "
+                      f"lr {float(metrics['lr']):.2e} "
+                      f"{tokens_done/dt:,.0f} tok/s")
+            if (i + 1) % args.ckpt_every == 0:
+                mgr.save(i + 1, train_state(), extra={"next_batch": i + 1})
+    finally:
+        pipe.stop()
+        mgr.wait()   # a stopped run still publishes the save it started
+    mgr.save(args.steps, train_state(), extra={"next_batch": args.steps})
+    mgr.wait()
+    print(f"done; checkpoints in {ckpt_dir}")
+    return [float(loss) for loss in losses]
+
+
+if __name__ == "__main__":
+    main()

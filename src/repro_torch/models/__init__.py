@@ -7,7 +7,7 @@ from .moe import MoE, moe_mlp
 from .rwkv6 import (RWKV6, rwkv6_channel_mix, rwkv6_channel_mix_step,
                     rwkv6_time_mix, rwkv6_time_mix_step)
 from .transformer import (Transformer, decode_step, forward_logits,
-                          init_cache, init_params, prefill)
+                          forward_train, init_cache, init_params, prefill)
 
 __all__ = [
     "Mamba2",
@@ -16,6 +16,7 @@ __all__ = [
     "Transformer",
     "decode_step",
     "forward_logits",
+    "forward_train",
     "init_cache",
     "init_params",
     "mamba2_decode_step",

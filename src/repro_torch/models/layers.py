@@ -1,5 +1,5 @@
 """Shared layers: the port of ``repro.models.layers`` for the dense GQA
-decoder, in prefill and decode modes.
+decoder, in train, prefill and decode modes, and its losses.
 
 Conventions (as in the reference):
 * weights keep JAX's ``x @ W`` layout ``(in, out)``, so carrying the
@@ -12,6 +12,8 @@ Conventions (as in the reference):
 
 Modules (``Attention``, ``MLP``) only hold parameters; the computation is
 in plain functions that take them, with the reference's names.
+Parameters are built without grad, so serving records no graph;
+``steps.init_train_state`` turns grad on for training.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention.ops import flash_attention_fwd
 from ..kernels.flash_attention.ref import attention_ref
@@ -30,7 +33,7 @@ NEG_INF = -1e30
 
 
 def _param(shape, device, dtype) -> nn.Parameter:
-    # inference-only slice: no autograd on the weights
+    # built without grad (serving records no graph); training turns it on
     return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
                         requires_grad=False)
 
@@ -180,7 +183,7 @@ def multihead_attention(
     window: int = 0,
     decode: bool = False,           # True: attend over the cache (S small)
     eps: float = 1e-5,
-    impl: str = "auto",             # prefill attention: auto | ref
+    impl: str = "auto",             # prompt attention: auto | ref
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Causal self-attention.  Returns (output (B,S,d_model), cache).
 
@@ -191,11 +194,15 @@ def multihead_attention(
       decode   - cache given, decode=True: write the current token(s),
                  attend over the whole ring.
 
-    Prefill attention goes through ``flash_attention_fwd``: the Hopper
-    kernel for every CUDA tensor, the plain version for a CPU tensor (the
-    reference's ``S % 512 == 0 and T % 1024 == 0`` rule is a tiling
-    constraint of its XLA scan, not part of the model).  Decode attention
-    is plain PyTorch, as it is plain XLA in the reference.
+    Prompt attention (no cache, or prefill) goes through
+    ``flash_attention_fwd``: the Hopper kernel for every CUDA tensor, the
+    plain version for a CPU tensor; with grad enabled it is the
+    differentiable op, whose backward is the reference's blocked flash
+    backward in plain PyTorch.  The reference takes its flash path only
+    when ``S % 512 == 0 and T % 1024 == 0`` and plain attention otherwise:
+    a tiling constraint of its XLA scan, not part of the model, so the
+    port takes the same op at every S.  Decode attention is plain PyTorch,
+    as it is plain XLA in the reference.
     """
     B, S, _ = x.shape
     q = (x @ p.wq).reshape(B, S, n_heads, d_head)
@@ -228,3 +235,56 @@ def multihead_attention(
 
 def mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ p.wi_gate) * (x @ p.wi_up)) @ p.wo
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Numerically-stable CE; logits (B,S,V) any float dtype, targets int."""
+    logits = logits.float()
+    m = logits.amax(dim=-1, keepdim=True)
+    lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(dim=-1))
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
+
+
+def _xent_chunk(x, w, targets, mask):
+    logits = (x @ w).float()
+    m = logits.amax(dim=-1, keepdim=True)
+    lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(dim=-1))
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return ((lse - gold) * mask).sum(), mask.sum()
+
+
+def chunked_softmax_xent(x: torch.Tensor, w: torch.Tensor,
+                         targets: torch.Tensor,
+                         mask: Optional[torch.Tensor],
+                         chunk: int = 512) -> torch.Tensor:
+    """CE over the LM head without materializing full (B,S,V) logits.
+
+    Walks sequence chunks, recomputing each chunk's logits in the backward
+    pass (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
+    Transient memory drops from O(B*S*V) to O(B*chunk*V).  For S <= chunk
+    it is the plain ``cross_entropy`` of the whole logits.  Masked tokens
+    count neither in the sum nor in the count; the last chunk may be short
+    (the reference needs S to divide)."""
+    B, S, D = x.shape
+    if S <= chunk:
+        return cross_entropy(x @ w, targets, mask)
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s0 in range(0, S, chunk):
+        part = slice(s0, s0 + chunk)
+        nll, n = checkpoint(_xent_chunk, x[:, part], w, targets[:, part],
+                            mask[:, part], use_reentrant=False)
+        tot, cnt = tot + nll, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)

@@ -5,7 +5,10 @@ dense SwiGLU MLP), ``moe`` (GQA with a mixture of experts), ``mamba2``
 zamba2's shared attention block (one parameter set, attention + dense
 MLP) applied after every ``shared_attn_every`` layers.
 
-Two serving modes share the block code, as in the reference:
+Three modes share the block code, as in the reference:
+  train   : ``forward_train``, the full-sequence forward to the loss, each
+            block recomputed in the backward pass (dense ``attn`` blocks
+            only so far);
   prefill : full prompt, caches written (ring buffers / recurrent states);
   decode  : one token against the caches (the serve step);
 plus ``forward_logits``, the full-sequence forward without a cache that
@@ -29,6 +32,7 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..config import ModelConfig
@@ -280,16 +284,22 @@ def _apply_rwkv_block(cfg: ModelConfig, p: Block, x,
 
 def _stack(cfg: ModelConfig, params: Transformer, x, positions,
            caches: Optional[Dict], cache_pos: int, *, decode: bool,
-           impl: str = "auto", moe_offset=None):
+           impl: str = "auto", moe_offset=None, remat: bool = False):
     """Run the decoder stack (the reference's layer scan, as a loop), with
     the shared block after layer i when (i + 1) % shared_attn_every == 0,
     on shared cache i // shared_attn_every.  Returns (x, caches, aux), aux
-    averaged over layers."""
+    averaged over layers.  ``remat`` (training, dense blocks) recomputes
+    each block in the backward pass, the reference's
+    ``jax.checkpoint(unit)``."""
     k = cfg.shared_attn_every
     auxes = []
     for i, lp in enumerate(params.layers):
         lcache = caches["layers"][i] if caches is not None else None
-        if hasattr(lp, "mamba"):
+        if remat:
+            x, aux = checkpoint(_train_block, cfg, lp, x, positions, impl,
+                                moe_offset, use_reentrant=False)
+            auxes.append(aux)
+        elif hasattr(lp, "mamba"):
             x = _apply_mamba_block(cfg, lp, x, lcache, decode=decode,
                                    impl=impl)
         elif hasattr(lp, "rwkv"):
@@ -310,6 +320,14 @@ def _stack(cfg: ModelConfig, params: Transformer, x, positions,
     return x, caches, aux
 
 
+def _train_block(cfg: ModelConfig, p: Block, x, positions, impl: str,
+                 moe_offset):
+    x, _, aux = _apply_attn_block(cfg, p, x, positions, None, 0,
+                                  decode=False, impl=impl,
+                                  moe_offset=moe_offset)
+    return x, aux
+
+
 # ---------------------------------------------------------------------------
 # Public entry points
 # ---------------------------------------------------------------------------
@@ -327,6 +345,36 @@ def forward_logits(cfg: ModelConfig, params: Transformer,
     x, _, _ = _stack(cfg, params, x, positions, None, 0, decode=False,
                      impl=impl)
     return L.rms_norm(x, params.final_norm, cfg.norm_eps) @ params.lm_head
+
+
+def forward_train(cfg: ModelConfig, params: Transformer, batch: Dict,
+                  remat: bool = True, moe_offset=None, impl: str = "auto"):
+    """Full-sequence forward to the loss; returns (loss, metrics).
+
+    ``batch`` holds int ``tokens`` and ``targets`` (B, S).  Embeddings, the
+    stack (each block under ``torch.utils.checkpoint`` when ``remat``), the
+    final norm, then ``chunked_softmax_xent`` over the LM head, plus 0.01
+    times each ``*_loss`` aux of the stack (none for dense blocks).
+    Dense ``attn`` blocks only: the ``moe``, ``mamba2`` and ``rwkv6``
+    kinds raise, since their CUDA kernels have no backward yet.
+    ``impl="ref"`` sends attention to its plain version on the card."""
+    kinds = set(cfg.block_pattern)
+    if kinds != {"attn"} or cfg.shared_attn_every:
+        raise NotImplementedError(
+            f"{cfg.name}: repro_torch trains dense attention decoders only "
+            f"so far; block kinds {sorted(kinds)} (shared block every "
+            f"{cfg.shared_attn_every}) have kernels without a backward")
+    tokens = batch["tokens"]
+    x = params.embed[tokens]
+    positions = _positions(0, tokens.shape[1], x.device)
+    x, _, aux = _stack(cfg, params, x, positions, None, 0, decode=False,
+                       impl=impl, moe_offset=moe_offset, remat=remat)
+    x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
+    loss = L.chunked_softmax_xent(x, params.lm_head, batch["targets"], None)
+    for key, val in aux.items():
+        if key.endswith("_loss"):
+            loss = loss + 0.01 * val
+    return loss, {"loss": loss, **aux}
 
 
 def prefill(cfg: ModelConfig, params: Transformer, batch: Dict,

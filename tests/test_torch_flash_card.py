@@ -6,7 +6,14 @@ no JAX, so they run on the GPU machine:
 
 Tolerances (atol = rtol): f32 5e-5, summation order only; bf16 2e-2, the
 kernel carries P to the tensor-core P.V product as a bf16 hi + lo pair
-and both round the output once (as in tests/test_kernels.py).
+and both round the output once (as in tests/test_kernels.py).  The
+log-sum-exp output (what the backward reads): f32 5e-5; bf16 2e-4, the
+same exact products of bf16 inputs summed in f32 in both, the kernel's max
+in log2 units and its exp2 the SFU's (about 2 ulp).  The autograd op's
+dq, dk, dv with the kernel forward against those with the plain forward
+(the same plain backward), normalised by max |want|: f32 1e-4, the
+forwards' summation order; bf16 2e-2, an ulp or two where the two outputs
+round apart.
 """
 
 import pytest
@@ -15,6 +22,8 @@ import torch
 from repro_torch.kernels.flash_attention import ops
 
 TOL = {"float32": 5e-5, "bfloat16": 2e-2}
+LSE_TOL = {"float32": 5e-5, "bfloat16": 2e-4}
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
 def _card():
@@ -107,3 +116,61 @@ def test_window_cuts_inside_a_tile(D):
                                        impl="ref")
         torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                    rtol=2e-2)
+
+
+def _gqa_inputs(gen, dtype, D, groups, B=2, S=300, Hkv=2):
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, S, Hkv * groups, D), generator=gen, device="cuda",
+                    dtype=dt)
+    k, v = (torch.randn((B, S, Hkv, D), generator=gen, device="cuda",
+                        dtype=dt) for _ in range(2))
+    return q, k, v, torch.arange(S, dtype=torch.int32, device="cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("groups", [1, 2, 4])
+@pytest.mark.parametrize("D", [64, 80, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lse_matches_plain_on_card(dtype, D, groups):
+    """The kernel's (B,Hq,S) f32 log-sum-exp at ragged S (300: the last
+    128-row tile part full) against the plain version's; asking for it
+    leaves the output as it is without it, bit for bit."""
+    gen = _card()
+    q, k, v, pos = _gqa_inputs(gen, dtype, D, groups)
+    before = ops.launches
+    out, lse = ops.flash_attention_fwd(q, k, v, pos, pos, window=64,
+                                       return_lse=True)
+    bare = ops.flash_attention_fwd(q, k, v, pos, pos, window=64)
+    torch.cuda.synchronize()
+    assert ops.launches == before + 2
+    _, want = ops.flash_attention_fwd(q, k, v, pos, pos, window=64,
+                                      impl="ref", return_lse=True)
+    assert lse.shape == want.shape == (2, 2 * groups, 300)
+    assert lse.dtype == torch.float32
+    torch.testing.assert_close(lse, want, atol=LSE_TOL[dtype],
+                               rtol=LSE_TOL[dtype])
+    assert torch.equal(out, bare)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("groups", [1, 2, 4])
+@pytest.mark.parametrize("D", [64, 80, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_autograd_with_kernel_forward_matches_plain(dtype, D, groups):
+    """dq, dk, dv through the autograd op: the kernel's forward (one
+    launch, with its lse) and the plain backward, against the plain
+    forward and the same backward; dk and dv summed over each group."""
+    gen = _card()
+    q, k, v, pos = _gqa_inputs(gen, dtype, D, groups)
+    dout = torch.randn(q.shape, generator=gen, device="cuda", dtype=q.dtype)
+    grads = {}
+    for impl in ("auto", "ref"):
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        before = ops.launches
+        out = ops.flash_attention_fwd(*leaves, pos, pos, impl=impl)
+        assert ops.launches == before + (impl == "auto")
+        grads[impl] = torch.autograd.grad(out, leaves, dout)
+    for got, want, t in zip(grads["auto"], grads["ref"], (q, k, v)):
+        assert got.shape == t.shape and got.dtype == t.dtype
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= GRAD_TOL[dtype] * want.float().abs().max().item()

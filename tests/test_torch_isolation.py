@@ -67,7 +67,15 @@ def test_port_and_chip_smoke_import_with_jax_and_repro_blocked():
                  "repro_torch.kernels.mamba2_ssd",
                  "repro_torch.kernels.mamba2_ssd.ops",
                  "repro_torch.kernels.mamba2_ssd.ref",
-                 "repro_torch.configs.zamba2_2_7b"):
+                 "repro_torch.configs.zamba2_2_7b",
+                 "repro_torch.core.atomics", "repro_torch.core.waiting",
+                 "repro_torch.core.locks", "repro_torch.core.gcr",
+                 "repro_torch.optim", "repro_torch.optim.adamw",
+                 "repro_torch.optim.schedules",
+                 "repro_torch.data", "repro_torch.data.pipeline",
+                 "repro_torch.checkpoint",
+                 "repro_torch.checkpoint.manager", "repro_torch.steps",
+                 "repro_torch.launch.train"):
         assert name in names, name
 
 
@@ -80,9 +88,10 @@ def test_entry_points_without_device_raise_when_cuda_is_absent():
     _no_cuda()
     from repro_torch import resolve_device
     from repro_torch.configs import get_smoke_config
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models import Transformer, init_cache, init_params
     from repro_torch.serving.engine import TorchServeEngine
+    from repro_torch.steps import init_train_state
 
     assert resolve_device("cpu") == torch.device("cpu")
     for arch in ("qwen3-0.6b", "granite-moe-1b-a400m", "zamba2-2.7b"):
@@ -92,7 +101,9 @@ def test_entry_points_without_device_raise_when_cuda_is_absent():
                      lambda: Transformer(cfg),
                      lambda: init_params(cfg, torch.Generator()),
                      lambda: TorchServeEngine(cfg, None, 3, 32),
-                     lambda: serve.main(["--arch", arch])):
+                     lambda: serve.main(["--arch", arch]),
+                     lambda: init_train_state(cfg, torch.Generator()),
+                     lambda: train.main(["--arch", arch, "--smoke"])):
             with pytest.raises(RuntimeError, match="CUDA"):
                 call()
 
