@@ -12,7 +12,9 @@ sources (one ``nvcc`` each, started together) and then:
    windowed and non-causal, plus GQA, ragged lengths, head dim 80,
    ring-buffer positions with unwritten (-1) slots (also with S and T
    ragged against the kernel's 128-row tiles, at head dims 80 and 128),
-   strided views and the served attention models' prefill shapes; then
+   strided views, the served attention models' prefill shapes and the
+   other dense configs' head layouts (MHA 32/32, groups of 6 and 4, at
+   head dim 128); then
    what training reads of it: its log-sum-exp output at those shapes and
    the train shape, and the autograd op's gradients with the kernel
    forward against those with the plain forward;
@@ -69,7 +71,12 @@ sources (one ``nvcc`` each, started together) and then:
    full width (one checkpoint), and on the smoke config straight, stopped
    after its checkpoint at step 4, and resumed, and checks that the
    resumed run starts at next_batch 4 and gives the straight run's
-   losses;
+   losses; before the launcher it trains the other kinds the same way
+   (kernels against the plain versions in bf16 and in f32 at 4 layers,
+   timed steps with every kernel's launches counted, a profile, and the
+   kind's plain backward alone): granite-moe-1b-a400m and zamba2-2.7b at
+   full width and depth, rwkv6-7b at full width and 8 of its 32 layers
+   (its bf16 gradients held equal to the plain versions');
 9. prints one JSON line describing every kernel of the path, then, as
    the last line, ``{"ok": true, "device": {...}}``.
 
@@ -144,6 +151,11 @@ WKV_CHUNK = 16      # the reference model's chunk, for the bound's count
 # the served attention models' prefill attention heads: (arch, Hq, Hkv, D)
 FLASH_SERVED = [("granite-moe-1b-a400m", 16, 8, 64), ("qwen3-0.6b", 16, 8, 128),
                 ("zamba2-2.7b", 32, 32, 80)]
+# the other dense configs' attention heads, all at head dim 128: MHA, a
+# query-head group of 6 and a group of 4; held at one row of S = T = 1024
+# in f32 and bf16 (forward, lse and the autograd op's gradients)
+FLASH_DENSE = [("deepseek-7b", 32, 32, 128), ("internlm2-20b", 48, 8, 128),
+               ("qwen3-8b", 32, 8, 128)]
 # the kernel's log-sum-exp output (the backward's input) against the plain
 # version's, atol = rtol: f32 summation order only (the output's TOL);
 # bf16: both take the same exact products of the bf16 inputs and sum them
@@ -177,6 +189,16 @@ TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "qwen3-0.6b", 4, 1024, 3
 TRAIN_LOSS_RTOL = 1e-2
 TRAIN_F32_RTOL = 1e-4
 TRAIN_F32_LAYERS = 4
+# the other decoder kinds, trained like TRAIN_ARCH (B, S, steps and
+# tolerances above) at full width: (arch, layers, with None for the
+# config's depth).  granite-moe-1b-a400m (1.39 B parameters) and
+# zamba2-2.7b (2.42 B) at full depth; rwkv6-7b's 32 layers (7.53 B) would
+# need about 90 GB for weights, f32 AdamW moments and gradients at 12
+# bytes a parameter, more than the card holds: RWKV_TRAIN_LAYERS of them
+# (2.28 B parameters)
+RWKV_TRAIN_LAYERS = 8
+KIND_TRAIN = [("granite-moe-1b-a400m", None), ("zamba2-2.7b", None),
+              ("rwkv6-7b", RWKV_TRAIN_LAYERS)]
 # the launcher (launch/train.py's main): once at full width for
 # LAUNCH_STEPS steps with only its final save (a full-width checkpoint
 # holds 12 bytes a parameter on disk, bf16 widened to f32 and two f32
@@ -374,6 +396,13 @@ def flash_kernel_phase(torch, fa, gen):
                            f"window={window} {short}", dtype, q, k, v,
                            arange(S, T - S), k_pos, window, True)
 
+        # the other dense configs' layouts at S = T = 1024
+        for arch, Hq, Hkv, D in FLASH_DENSE:
+            q = rnd((1, 1024, Hq, D), dtype)
+            k, v = rnd((1, 1024, Hkv, D), dtype), rnd((1, 1024, Hkv, D), dtype)
+            positional(f"{arch} B1 S=T=1024 Hq{Hq} Hkv{Hkv} D{D} {short}",
+                       dtype, q, k, v, arange(1024), arange(1024), 0, True)
+
         # strided views: q, k, v sliced out of one fused projection
         qkv = rnd((2, 384, 16 + 8 + 8, 128), dtype)
         q, k, v = qkv[:, :, :16], qkv[:, :, 16:24], qkv[:, :, 24:]
@@ -408,7 +437,8 @@ def flash_train_phase(torch, fa, gen):
     print("kernel phase: the flash kernel's lse and gradients vs plain")
     shapes = [(arch, N_SLOTS, Hq, Hkv, D) for arch, Hq, Hkv, D
               in FLASH_SERVED] + [(f"{TRAIN_ARCH} train", TRAIN_B, 16, 8,
-                                   128)]
+                                   128)] + [(arch, 1, Hq, Hkv, D) for
+                                            arch, Hq, Hkv, D in FLASH_DENSE]
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         short = str(dtype).replace("torch.", "")
@@ -438,26 +468,29 @@ def flash_train_phase(torch, fa, gen):
             check(same, f"asking for the lse changed the output: {label}")
             worst = max(worst, err)
 
-        q = rnd((TRAIN_B, TRAIN_S, 16, 128), dtype)
-        k, v = (rnd((TRAIN_B, TRAIN_S, 8, 128), dtype) for _ in range(2))
-        dout = rnd((TRAIN_B, TRAIN_S, 16, 128), dtype)
         pos = torch.arange(TRAIN_S, dtype=torch.int32, device="cuda")
-        grads = {}
-        for impl in ("auto", "ref"):
-            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-            out = fa.flash_attention_fwd(*leaves, pos, pos, impl=impl)
-            grads[impl] = torch.autograd.grad(out, leaves, dout)
         tol = GRAD_TOL[str(dtype)]
-        for name, got, want in zip(("dq", "dk", "dv"), grads["auto"],
-                                   grads["ref"]):
-            err = (got.float() - want.float()).abs().max().item()
-            scale = want.float().abs().max().item()
-            ok = err <= tol * scale
-            print(f"  autograd {name} at {TRAIN_ARCH}'s train shape "
-                  f"B{TRAIN_B} S{TRAIN_S} Hq16 Hkv8 D128 {short}, kernel vs "
-                  f"plain forward: max_abs_err={err:.3e} (normalised "
-                  f"{err / scale:.2e}, tol {tol:g}) {'ok' if ok else 'FAIL'}")
-            check(ok, f"flash autograd {name} disagrees: {short}")
+        for label, B, Hq, Hkv, D in [(f"{TRAIN_ARCH}'s train shape", TRAIN_B,
+                                      16, 8, 128)] + [
+                (arch, 1, Hq, Hkv, D) for arch, Hq, Hkv, D in FLASH_DENSE]:
+            q = rnd((B, TRAIN_S, Hq, D), dtype)
+            k, v = (rnd((B, TRAIN_S, Hkv, D), dtype) for _ in range(2))
+            dout = rnd((B, TRAIN_S, Hq, D), dtype)
+            grads = {}
+            for impl in ("auto", "ref"):
+                leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+                out = fa.flash_attention_fwd(*leaves, pos, pos, impl=impl)
+                grads[impl] = torch.autograd.grad(out, leaves, dout)
+            for name, got, want in zip(("dq", "dk", "dv"), grads["auto"],
+                                       grads["ref"]):
+                err = (got.float() - want.float()).abs().max().item()
+                scale = want.float().abs().max().item()
+                ok = err <= tol * scale
+                print(f"  autograd {name} at {label} B{B} S{TRAIN_S} Hq{Hq} "
+                      f"Hkv{Hkv} D{D} {short}, kernel vs plain forward: "
+                      f"max_abs_err={err:.3e} (normalised {err / scale:.2e}, "
+                      f"tol {tol:g}) {'ok' if ok else 'FAIL'}")
+                check(ok, f"flash autograd {name} disagrees: {label} {short}")
     return worst
 
 
@@ -1034,12 +1067,7 @@ def serve_phase(torch, np, kernels, arch, expect):
         moe_mod.router_topk = router_topk
 
     waves, steps = len(prefill_ms), len(decode_ms)
-    # prompt attention: every layer of an attention kind, plus the shared
-    # block's invocations; none in an attention-free stack
-    n_attn = cfg.n_layers if kind in ("attn", "moe") else 0
-    if cfg.shared_attn_every:
-        n_attn += cfg.n_layers // cfg.shared_attn_every
-    want = {"flash": n_attn * waves,
+    want = {"flash": attention_blocks(cfg) * waves,
             "gmm": 3 * cfg.n_layers * (waves + steps) if is_moe else 0,
             "ssd": cfg.n_layers * waves if kind == "mamba2" else 0,
             "wkv": cfg.n_layers * waves if kind == "rwkv6" else 0}
@@ -1091,6 +1119,53 @@ def serve_phase(torch, np, kernels, arch, expect):
     return launches
 
 
+def loss_and_grads(torch, cfg, model, batch, impl):
+    """One train forward and backward: (loss, {parameter name: grad})."""
+    from repro_torch.models import forward_train
+
+    loss, _ = forward_train(cfg, model, batch, impl=impl)
+    named = dict(model.named_parameters())
+    grads = torch.autograd.grad(loss, list(named.values()))
+    return loss.detach(), dict(zip(named, grads))
+
+
+def kernels_vs_plain(torch, cfg, model, batch, replay=False):
+    """One step's loss and gradients with the kernels (``impl="auto"``)
+    against the plain versions (``impl="ref"``) from the same weights and
+    batch: both losses, both global norms, the gradient leaf with the
+    largest relative L2 difference, and the leaves equal bit for bit.
+    With ``replay`` the plain step runs twice, and ``plain_equal`` counts
+    the leaves on which it equals itself (an order of atomic adds on the
+    card may move a last bit)."""
+    from repro_torch.optim import global_norm
+
+    loss_k, g_k = loss_and_grads(torch, cfg, model, batch, "auto")
+    loss_r, g_r = loss_and_grads(torch, cfg, model, batch, "ref")
+    rel = {name: ((g_k[name].float() - g_r[name].float()).norm()
+                  / g_r[name].float().norm().clamp_min(1e-30)).item()
+           for name in g_r}
+    worst = max(rel, key=rel.get)
+    out = {"loss": (loss_k.item(), loss_r.item()),
+           "grad_norm": (global_norm(g_k).item(), global_norm(g_r).item()),
+           "worst_leaf": (worst, rel[worst]),
+           "equal": {name for name in g_r if torch.equal(g_k[name],
+                                                          g_r[name])},
+           "leaves": len(g_r)}
+    del g_k
+    if replay:
+        loss_r2, g_r2 = loss_and_grads(torch, cfg, model, batch, "ref")
+        out["plain_equal"] = {name for name in g_r
+                              if torch.equal(g_r[name], g_r2[name])}
+        out["plain_loss_equal"] = bool(torch.equal(loss_r, loss_r2))
+        del g_r2
+    del g_r
+    return out
+
+
+def rel_diff(pair):
+    return abs(pair[0] - pair[1]) / abs(pair[1])
+
+
 def train_phase(torch, fa):
     """Train qwen3-0.6b at full width through the port's step builder:
     one step's loss and gradients with the kernels against plain attention
@@ -1103,8 +1178,8 @@ def train_phase(torch, fa):
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticTokens
     from repro_torch.kernels.flash_attention.ref import flash_bwd_ref
-    from repro_torch.models import forward_train, init_params
-    from repro_torch.optim import adamw_update, global_norm
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_update
     from repro_torch.steps import init_train_state, make_train_step
 
     cfg = get_config(TRAIN_ARCH)
@@ -1120,33 +1195,10 @@ def train_phase(torch, fa):
         return {k: torch.from_numpy(v).to("cuda")
                 for k, v in src.global_batch_at(i).items()}
 
-    def loss_and_grads(model_cfg, model, batch, impl):
-        loss, _ = forward_train(model_cfg, model, batch, impl=impl)
-        named = dict(model.named_parameters())
-        grads = torch.autograd.grad(loss, list(named.values()))
-        return loss.detach(), dict(zip(named, grads))
-
-    def kernels_vs_plain(model_cfg, model, batch):
-        loss_k, g_k = loss_and_grads(model_cfg, model, batch, "auto")
-        loss_r, g_r = loss_and_grads(model_cfg, model, batch, "ref")
-        rel = {name: ((g_k[name].float() - g_r[name].float()).norm()
-                      / g_r[name].float().norm().clamp_min(1e-30)).item()
-               for name in g_r}
-        worst = max(rel, key=rel.get)
-        out = {"loss": (loss_k.item(), loss_r.item()),
-               "grad_norm": (global_norm(g_k).item(),
-                             global_norm(g_r).item()),
-               "worst_leaf": (worst, rel[worst])}
-        del g_k, g_r
-        return out
-
-    def rel_diff(pair):
-        return abs(pair[0] - pair[1]) / abs(pair[1])
-
     print(f"train phase: {cfg.name} {n_params / 1e6:.1f}M params, bf16 "
           f"weights, f32 AdamW moments, B{TRAIN_B} S{TRAIN_S}")
     batch = batch_at(0)
-    cmp = kernels_vs_plain(cfg, params, batch)
+    cmp = kernels_vs_plain(torch, cfg, params, batch)
     print(f"  one step, kernels vs plain attention (bf16, {cfg.n_layers} "
           f"layers): loss {cmp['loss'][0]:.6f} vs {cmp['loss'][1]:.6f} "
           f"(rel {rel_diff(cmp['loss']):.2e}, tol {TRAIN_LOSS_RTOL:g}); "
@@ -1162,7 +1214,7 @@ def train_phase(torch, fa):
                                 dtype="float32")
     model32 = init_params(cfg32, torch.Generator(device="cuda").manual_seed(1),
                           "cuda").requires_grad_(True)
-    cmp32 = kernels_vs_plain(cfg32, model32, batch)
+    cmp32 = kernels_vs_plain(torch, cfg32, model32, batch)
     del model32
     print(f"  one step, kernels vs plain attention (f32, {TRAIN_F32_LAYERS} "
           f"layers): loss rel {rel_diff(cmp32['loss']):.2e}, largest "
@@ -1195,7 +1247,7 @@ def train_phase(torch, fa):
         losses.append(metrics["loss"].item())
     launches = fa.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want = 2 * cfg.n_layers * TRAIN_STEPS
+    want = train_launches(cfg, TRAIN_STEPS)["flash"]
     print(f"  {TRAIN_STEPS} steps: losses {[round(x, 6) for x in losses]}, "
           f"grad_norm {metrics['grad_norm'].item():.4f}, lr "
           f"{metrics['lr'].item():.3e}; flash launches {launches} (want "
@@ -1213,8 +1265,9 @@ def train_phase(torch, fa):
         step(n, impl)
         torch.cuda.synchronize()
         impl_wall = (time.perf_counter() - t) * 1e3
-        busy, n_kernels, flash_ms = profiled_ms(torch, lambda: step(n + 2,
-                                                                    impl))
+        busy, n_kernels, port_ms = profiled_ms(torch, lambda: step(n + 2,
+                                                                   impl))
+        flash_ms = port_ms["flash"]
         label = "kernels" if impl == "auto" else "plain attention"
         print(f"  profile train step ({label}): wall {impl_wall:.3f} ms, "
               f"device busy {busy:.3f} ms, idle share "
@@ -1263,9 +1316,220 @@ def train_phase(torch, fa):
     return launches, figures
 
 
+def attention_blocks(cfg) -> int:
+    """Attention blocks of one forward pass: every layer of an attention
+    kind, plus the shared block's uses; none in an attention-free
+    stack."""
+    n = cfg.n_layers if cfg.block_pattern[0] in ("attn", "moe") else 0
+    if cfg.shared_attn_every:
+        n += cfg.n_layers // cfg.shared_attn_every
+    return n
+
+
+def train_launches(cfg, steps: int) -> dict:
+    """Kernel launches of ``steps`` train steps of ``cfg``, every layer
+    run twice under remat (the forward and its recomputation): flash once
+    an attention block, gmm three times a MoE layer, ssd once a Mamba2
+    layer, wkv once an RWKV6 layer."""
+    kind = cfg.block_pattern[0]
+    per_pass = {"flash": attention_blocks(cfg),
+                "gmm": 3 * cfg.n_layers if kind == "moe" else 0,
+                "ssd": cfg.n_layers if kind == "mamba2" else 0,
+                "wkv": cfg.n_layers if kind == "rwkv6" else 0}
+    return {name: 2 * n * steps for name, n in per_pass.items()}
+
+
+def kind_train_phase(torch, kernels, arch, n_layers):
+    """Train ``arch`` (MoE, Mamba2 or RWKV6) at full width, with
+    ``n_layers`` layers (None: its depth), through the port's step
+    builder, as ``train_phase`` trains TRAIN_ARCH: one step's loss and
+    gradients with the kernels against the plain versions (bf16 at the
+    phase's depth, then f32 at TRAIN_F32_LAYERS layers; for rwkv6 the
+    bf16 gradients equal, since its wkv kernel gives the plain version's
+    y; zamba2 in f32 at 6 layers, so that its shared block runs), then
+    TRAIN_STEPS timed steps of ``make_train_step`` with every
+    kernel's launches counted, wall and peak memory, one more step under
+    torch.profiler, and the plain backward of the kind's autograd op
+    alone at the step's shapes.  Returns the launches of the timed steps
+    and the figures."""
+    from repro_torch.config import OptimizerConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels._replay import replay_grads
+    from repro_torch.kernels.mamba2_ssd.ref import ssd_ref
+    from repro_torch.kernels.moe_gmm.ops import gmm_bwd_ref
+    from repro_torch.kernels.rwkv6_wkv.ref import wkv_ref
+    from repro_torch.models import init_params
+    from repro_torch.models.moe import _capacity
+    from repro_torch.steps import init_train_state, make_train_step
+
+    full = get_config(arch)
+    expect = dict(SERVED)[arch]
+    check({k: getattr(full, k) for k in expect} == expect
+          and full.dtype == "bfloat16", f"unexpected {arch} config")
+    cfg = full if n_layers is None else dataclasses.replace(
+        full, n_layers=n_layers)
+    kind = cfg.block_pattern[0]
+    params, opt = init_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    n_params = sum(p.numel() for p in params.parameters())
+    src = SyntheticTokens(cfg, TRAIN_S, TRAIN_B, seed=0)
+
+    def batch_at(i):
+        return {k: torch.from_numpy(v).to("cuda")
+                for k, v in src.global_batch_at(i).items()}
+
+    depth = (f"{cfg.n_layers} layers" if n_layers is None else
+             f"{cfg.n_layers} of {full.n_layers} layers")
+    print(f"train phase: {cfg.name} {n_params / 1e6:.1f}M params ({depth}), "
+          f"bf16 weights, f32 AdamW moments, B{TRAIN_B} S{TRAIN_S}")
+    batch = batch_at(0)
+    exact = kind == "rwkv6"
+    cmp = kernels_vs_plain(torch, cfg, params, batch, replay=exact)
+    print(f"  one step, kernels vs plain versions (bf16, {cfg.n_layers} "
+          f"layers): loss {cmp['loss'][0]:.6f} vs {cmp['loss'][1]:.6f} "
+          f"(rel {rel_diff(cmp['loss']):.2e}, tol {TRAIN_LOSS_RTOL:g}); "
+          f"grad_norm {cmp['grad_norm'][0]:.6f} vs {cmp['grad_norm'][1]:.6f}"
+          f" (rel {rel_diff(cmp['grad_norm']):.2e}, tol "
+          f"{TRAIN_LOSS_RTOL:g}); largest relative L2 difference of a "
+          f"gradient leaf {cmp['worst_leaf'][1]:.3e} ({cmp['worst_leaf'][0]})"
+          f"; leaves equal bit for bit {len(cmp['equal'])} of "
+          f"{cmp['leaves']}")
+    check(rel_diff(cmp["loss"]) <= TRAIN_LOSS_RTOL,
+          f"{arch}: bf16 train loss differs")
+    check(rel_diff(cmp["grad_norm"]) <= TRAIN_LOSS_RTOL,
+          f"{arch}: bf16 grad_norm differs")
+    if exact:
+        # equal wherever the plain step equals itself
+        print(f"  the plain step run twice: loss equal "
+              f"{cmp['plain_loss_equal']}, leaves equal bit for bit "
+              f"{len(cmp['plain_equal'])} of {cmp['leaves']}; kernels vs "
+              f"plain on those: {len(cmp['plain_equal'] & cmp['equal'])}")
+        check(cmp["plain_equal"] <= cmp["equal"]
+              and (cmp["loss"][0] == cmp["loss"][1]
+                   or not cmp["plain_loss_equal"]),
+              f"{arch}: the kernels' bf16 gradients differ from the plain "
+              "versions'")
+
+    # zamba2: enough layers that the shared block runs once
+    n32 = max(TRAIN_F32_LAYERS, cfg.shared_attn_every)
+    cfg32 = dataclasses.replace(cfg, n_layers=n32, dtype="float32")
+    model32 = init_params(cfg32, torch.Generator(device="cuda").manual_seed(1),
+                          "cuda").requires_grad_(True)
+    cmp32 = kernels_vs_plain(torch, cfg32, model32, batch)
+    del model32
+    print(f"  one step, kernels vs plain versions (f32, {n32} "
+          f"layers): loss rel {rel_diff(cmp32['loss']):.2e}, largest "
+          f"relative L2 difference of a gradient leaf "
+          f"{cmp32['worst_leaf'][1]:.3e} ({cmp32['worst_leaf'][0]}), tol "
+          f"{TRAIN_F32_RTOL:g}; leaves equal bit for bit "
+          f"{len(cmp32['equal'])} of {cmp32['leaves']}")
+    check(rel_diff(cmp32["loss"]) <= TRAIN_F32_RTOL
+          and cmp32["worst_leaf"][1] <= TRAIN_F32_RTOL,
+          f"{arch}: f32 train gradients differ")
+
+    opt_cfg = OptimizerConfig(warmup_steps=1, total_steps=100)
+    step_fn = make_train_step(cfg, opt_cfg)
+    state = [params, opt]
+
+    def step(i):
+        state[0], state[1], metrics = step_fn(*state, batch_at(i), i)
+        return metrics
+
+    step(0)                                               # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in kernels.values():             # count the main path alone
+        mod.launches = 0
+    walls, losses = [], []
+    for i in range(1, 1 + TRAIN_STEPS):
+        t = time.perf_counter()
+        metrics = step(i)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+        losses.append(metrics["loss"].item())
+    launches = {name: mod.launches for name, mod in kernels.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = train_launches(cfg, TRAIN_STEPS)
+    aux = {k: round(v.item(), 6) for k, v in metrics.items()
+           if k.startswith("moe_")}
+    print(f"  {TRAIN_STEPS} steps: losses {[round(x, 6) for x in losses]}, "
+          f"grad_norm {metrics['grad_norm'].item():.4f}, lr "
+          f"{metrics['lr'].item():.3e} {aux}; launches {launches} (want "
+          f"{want}: each layer twice under remat x {TRAIN_STEPS} steps)")
+    check(launches == want, f"{arch}: train launches {launches} != {want}")
+    check(all(map(math.isfinite, losses)), f"{arch}: non-finite train loss")
+    wall_ms = statistics.median(walls)
+    print(f"  step wall ms {[round(w, 3) for w in walls]} (median "
+          f"{wall_ms:.3f}); peak memory allocated {peak_gb:.2f} GB")
+
+    t = time.perf_counter()
+    step(TRAIN_STEPS + 1)
+    torch.cuda.synchronize()
+    step_wall = (time.perf_counter() - t) * 1e3
+    busy, n_kernels, port_ms = profiled_ms(torch,
+                                           lambda: step(TRAIN_STEPS + 2))
+    print(f"  profile train step: wall {step_wall:.3f} ms, device busy "
+          f"{busy:.3f} ms, idle share {max(0.0, 1 - busy / step_wall):.3f}, "
+          f"{n_kernels} kernels; port kernels ms a step "
+          f"{ {k: round(v, 3) for k, v in port_ms.items() if v} }")
+    figures = {"layers": cfg.n_layers, "params": n_params,
+               "wall_ms": wall_ms, "peak_gb": peak_gb,
+               "profiled_wall_ms": step_wall, "busy_ms": busy,
+               "kernels_ms": port_ms, "launches_a_step": {
+                   k: v // TRAIN_STEPS for k, v in launches.items()}}
+    del state, params, opt, step_fn
+
+    # the kind's autograd op: its plain backward alone, at the step's
+    # shapes, once for each call a step makes
+    def rnd(shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, device="cuda") * scale).to(dtype)
+
+    B, S = TRAIN_B, TRAIN_S
+    if kind == "moe":
+        E, D, F = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+        C = _capacity(S, E, cfg.n_experts_active, cfg.moe_capacity_factor)
+        x, h = rnd((B, E, C, D)), rnd((B, E, C, F))
+        wi, wo = rnd((E, D, F), scale=D ** -0.5), rnd((E, F, D),
+                                                     scale=F ** -0.5)
+
+        def backward():
+            gmm_bwd_ref(x, wi, h)          # the gate and up products
+            gmm_bwd_ref(x, wi, h)
+            gmm_bwd_ref(h, wo, x)
+        op, what = "gmm", f"3 products, x (B{B},E{E},C{C},D{D})"
+    elif kind == "mamba2":
+        H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        ins = (rnd((B, S, H, P), scale=0.5),
+               -(torch.randn((B, S, H), device="cuda") * 0.1).abs(),
+               rnd((B, S, N), scale=0.5), rnd((B, S, N), scale=0.5), None)
+        dy = rnd((B, S, H, P))
+
+        def backward():
+            replay_grads(ssd_ref, ins, (True,) * 4 + (False,), (dy, None))
+        op, what = "ssd", f"(B{B},S{S},H{H},P{P},N{N})"
+    else:
+        H, P = cfg.rwkv_heads, cfg.rwkv_head_dim
+        ins = (rnd((B, S, H, P)), rnd((B, S, H, P)), rnd((B, S, H, P)),
+               torch.exp(-torch.exp(torch.randn((B, S, H, P),
+                                                device="cuda") * 0.5 - 2)),
+               torch.randn((H, P), device="cuda") * 0.5, None)
+        dy = rnd((B, S, H, P))
+
+        def backward():
+            replay_grads(wkv_ref, ins, (True,) * 5 + (False,), (dy, None))
+        op, what = "wkv", f"(B{B},S{S},H{H},P{P}), f64"
+    bwd_ms = device_ms(torch, backward, 3) * cfg.n_layers
+    print(f"  {op} backward (plain PyTorch) at {what}: "
+          f"{bwd_ms / cfg.n_layers:.3f} ms a layer, {bwd_ms:.3f} ms a step "
+          f"({bwd_ms / busy:.1%} of the step's device busy)")
+    figures[f"{op}_bwd_ms"] = bwd_ms
+    return launches, figures
+
+
 def profiled_ms(torch, work):
-    """(device busy ms, kernels, flash kernel ms) of one ``work()`` under
-    torch.profiler; prints the six heaviest kernels."""
+    """(device busy ms, kernels, {port kernel: ms}) of one ``work()``
+    under torch.profiler; prints the six heaviest kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1282,8 +1546,10 @@ def profiled_ms(torch, work):
             + e.time_range.elapsed_us() / 1e3
     for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         print(f"    {ms:9.3f} ms {ms / busy:6.1%}  {kname[:90]}")
-    flash = sum(ms for kname, ms in by_name.items() if "flash_fwd_" in kname)
-    return busy, len(kernels), flash
+    port = {name: sum(ms for kname, ms in by_name.items() if key in kname)
+            for name, key in zip(("flash", "gmm", "ssd", "wkv"),
+                                 PORT_KERNELS)}
+    return busy, len(kernels), port
 
 
 def train_launcher_phase(torch):
@@ -1494,13 +1760,27 @@ def main() -> int:
             launches[kernel] += n
     free_model(torch)
     print(f"launches over the {len(SERVED)} serve runs: {launches}")
-    train_launches, train = train_phase(torch, fa)
+    serve_launches = dict(launches)
+    flash_train, train = train_phase(torch, fa)
+    train_by_path = dict.fromkeys(kernels, 0)
+    train_by_path["flash"] = flash_train
+    kind_train = {}
+    for arch, n_layers in KIND_TRAIN:
+        free_model(torch)
+        got, kind_train[arch] = kind_train_phase(torch, kernels, arch,
+                                                 n_layers)
+        for kernel, n in got.items():
+            train_by_path[kernel] += n
     free_model(torch)
     train_launcher_phase(torch)
-    serve_flash = launches["flash"]
-    launches["flash"] += train_launches
-    print(f"flash launches: {serve_flash} serving, {train_launches} in the "
-          f"{TRAIN_STEPS} timed train steps")
+    for kernel, n in train_by_path.items():
+        launches[kernel] += n
+    by_path = {kernel: {"serve": serve_launches[kernel],
+                        "train": train_by_path[kernel]}
+               for kernel in kernels}
+    print(f"launches by path (serve runs; the timed train steps of "
+          f"{TRAIN_ARCH} and of {', '.join(a for a, _ in KIND_TRAIN)}): "
+          f"{by_path}")
 
     print(card_line())
     print(json.dumps({"kernels": [{
@@ -1509,7 +1789,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:78",
         "launches": launches["flash"],
-        "launches_by_path": {"serve": serve_flash, "train": train_launches},
+        "launches_by_path": by_path["flash"],
         "max_abs_err": flash_err,
         "lse_max_abs_err": lse_err,
         **flash_times["qwen3-0.6b"],
@@ -1525,28 +1805,38 @@ def main() -> int:
         "source": "src/repro_torch/kernels/moe_gmm/csrc/gmm.cu",
         "replaces": "src/repro/kernels/moe_gmm/kernel.py:42",
         "launches": launches["gmm"],
+        "launches_by_path": by_path["gmm"],
         "max_abs_err": gmm_err,
         **{k: gmm_times[0][k] for k in ("ms", "plain_ms", "library_ms",
                                         "bound_ms", "bound_by")},
         # the same figures for wi and wo at prefill (wide kernel) and
         # decode (narrow kernel); the entry leads with prefill wi
         "by_shape": gmm_times,
+        # granite-moe-1b-a400m's train step and the plain gmm backward
+        "train": kind_train["granite-moe-1b-a400m"],
     }, {
         "name": "mamba2_ssd",
         "route": "cuda",
         "source": "src/repro_torch/kernels/mamba2_ssd/csrc/ssd.cu",
         "replaces": "src/repro/kernels/mamba2_ssd/kernel.py:77",
         "launches": launches["ssd"],
+        "launches_by_path": by_path["ssd"],
         "max_abs_err": ssd_err,
         **ssd_times,
+        # zamba2-2.7b's train step and the plain ssd backward
+        "train": kind_train["zamba2-2.7b"],
     }, {
         "name": "rwkv6_wkv",
         "route": "cuda",
         "source": "src/repro_torch/kernels/rwkv6_wkv/csrc/wkv.cu",
         "replaces": "src/repro/kernels/rwkv6_wkv/kernel.py:80",
         "launches": launches["wkv"],
+        "launches_by_path": by_path["wkv"],
         "max_abs_err": wkv_err,
         **wkv_times,
+        # rwkv6-7b's train step (RWKV_TRAIN_LAYERS layers) and the plain
+        # wkv backward
+        "train": kind_train["rwkv6-7b"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

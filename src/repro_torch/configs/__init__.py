@@ -1,4 +1,5 @@
-"""Per-architecture configs, for the archs the port serves so far.
+"""Per-architecture configs, for the archs the port runs so far: every
+decoder-only arch of the reference.
 
 ``get_config(name)`` / ``get_smoke_config(name)`` / ``ARCHS`` keep the
 reference's names.  ``ARCHS`` lists every arch of the reference; the ones
@@ -25,8 +26,11 @@ ARCHS: List[str] = [
 
 PORTED: Dict[str, str] = {
     "zamba2-2.7b": "zamba2_2_7b",
+    "internlm2-20b": "internlm2_20b",
+    "deepseek-7b": "deepseek_7b",
     "rwkv6-7b": "rwkv6_7b",
     "qwen3-0.6b": "qwen3_0_6b",
+    "qwen3-8b": "qwen3_8b",
     "mixtral-8x7b": "mixtral_8x7b",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
 }

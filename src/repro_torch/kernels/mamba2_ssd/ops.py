@@ -11,6 +11,9 @@ and C (B,S,N) -> (y (B,S,H,P), final state (B,H,P,N) f32), plus the
 model's initial state.  xdt, B and C are read in place through their
 strides.
 
+Under autograd (``SSD``) the forward is the kernel and the backward the
+gradients of the plain version, recomputed from the saved inputs.
+
 ``launches`` counts the kernel launches this process made.
 """
 
@@ -24,6 +27,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build
+from .._replay import replay_grads
 from .ref import ssd_ref
 
 launches = 0
@@ -127,15 +131,45 @@ def _launch(xdt, a, Bm, Cm, init_state):
     return y, state
 
 
+def _forward(xdt, a, Bm, Cm, init_state, impl: str):
+    if impl == "ref" or (impl == "auto" and xdt.device.type == "cpu"):
+        return ssd_ref(xdt, a, Bm, Cm, init_state)
+    if impl != "auto":
+        raise ValueError(f"unknown impl {impl!r}; expected auto | ref")
+    return _launch(xdt, a, Bm, Cm, init_state)
+
+
+class SSD(torch.autograd.Function):
+    """The scan under autograd: the forward is the kernel (or the plain
+    version, by ``impl``), returning (y, final state); the backward runs
+    ``ssd_ref`` again on the saved inputs and takes its gradients, for
+    xdt, a, B, C and the initial state.  The reference has no ssd
+    backward: it trains through ``ssd_chunked`` under ``jax.grad``.  An
+    output that got no gradient (training drops the final state) arrives
+    as None."""
+
+    @staticmethod
+    def forward(ctx, xdt, a, Bm, Cm, init_state, impl: str):
+        ctx.save_for_backward(xdt, a, Bm, Cm, init_state)
+        ctx.set_materialize_grads(False)
+        return _forward(xdt, a, Bm, Cm, init_state, impl)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        return replay_grads(ssd_ref, ctx.saved_tensors, ctx.needs_input_grad,
+                            (dy, dstate)) + (None,)
+
+
 def ssd(xdt: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
         Cm: torch.Tensor, init_state: Optional[torch.Tensor] = None, *,
         impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
     """xdt: (B,S,H,P) dt-premultiplied inputs; a: (B,S,H) f32 log decays;
     Bm, Cm: (B,S,N); init_state: (B,H,P,N) f32 or None.  Returns (y
     (B,S,H,P) in xdt's dtype, final_state (B,H,P,N) f32).
-    impl: auto | ref."""
-    if impl == "ref" or (impl == "auto" and xdt.device.type == "cpu"):
-        return ssd_ref(xdt, a, Bm, Cm, init_state)
-    if impl != "auto":
-        raise ValueError(f"unknown impl {impl!r}; expected auto | ref")
-    return _launch(xdt, a, Bm, Cm, init_state)
+    impl: auto | ref.  Differentiable (through ``SSD``) when grad is
+    enabled and an input requires grad."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (xdt, a, Bm, Cm, init_state)):
+        return SSD.apply(xdt, a, Bm, Cm, init_state, impl)
+    return _forward(xdt, a, Bm, Cm, init_state, impl)

@@ -2,8 +2,9 @@
 on the CPU.
 
 It is the math of the reference model's ``repro.models.mamba2.ssd_chunked``
-with an initial state: everything in f32 from the inputs as given, the
-state carried from chunk to chunk in f32, y rounded once to xdt's dtype.
+with an initial state: everything in f32 from the inputs as given (in
+f64 for f64 inputs, which the gradient checks use), the state carried
+from chunk to chunk in f32, y rounded once to xdt's dtype.
 
 One difference in form, none in value: a sequence that is not a multiple
 of the chunk is padded with rows of ``a = 0`` and ``x = B = C = 0`` and
@@ -33,7 +34,8 @@ def ssd_ref(xdt: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
     N = Bm.shape[-1]
     nc = -(-S // chunk)
     pad = nc * chunk - S
-    x, a32, Bf, Cf = xdt.float(), a.float(), Bm.float(), Cm.float()
+    acc = torch.promote_types(xdt.dtype, torch.float32)
+    x, a32, Bf, Cf = (t.to(acc) for t in (xdt, a, Bm, Cm))
     if pad:
         x = F.pad(x, (0, 0, 0, 0, 0, pad))
         a32 = F.pad(a32, (0, 0, 0, pad))
@@ -62,14 +64,15 @@ def ssd_ref(xdt: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
                           xc * decay_states.permute(0, 2, 3, 1)[..., None])
 
     # inter-chunk recurrence, the state carried in f32
-    state = (torch.zeros((Bb, H, P, N), dtype=torch.float32,
-                         device=x.device)
-             if init_state is None else init_state.float())
+    state = (torch.zeros((Bb, H, P, N), dtype=acc, device=x.device)
+             if init_state is None else init_state.to(acc))
     chunk_decay = torch.exp(a_cum[..., -1])                    # (B,H,c)
     states_in = []
-    for c in range(nc):
+    # unbind: the backward of indexing chunk c would write a zeroed copy of
+    # the whole tensor for each chunk
+    for st, dec in zip(states.unbind(1), chunk_decay.unbind(2)):
         states_in.append(state)
-        state = state * chunk_decay[:, :, c, None, None] + states[:, c]
+        state = state * dec[..., None, None] + st
     states_in = torch.stack(states_in, dim=1)                  # (B,c,H,P,N)
 
     # inter-chunk contribution

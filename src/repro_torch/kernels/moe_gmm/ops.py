@@ -18,6 +18,10 @@ The weights' map is cached keyed by exactly what it is made from
 (``weight_map_key``), so a hit is always right.  f32 has one kernel on
 the CUDA cores.
 
+Under autograd (``GroupedMatmul``) the forward is the kernel and the
+backward plain PyTorch (``gmm_bwd_ref``): the weights' gradients are
+read from x and dy, and never as a transposed view through the kernel.
+
 ``launches`` counts the kernel launches this process made;
 ``last_kernel`` names the kernel the last launch ran.
 """
@@ -203,12 +207,51 @@ def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out if x.dim() == 4 else out[0]
 
 
-def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *,
-                   impl: str = "auto") -> torch.Tensor:
-    """x: (E,C,D) or (B,E,C,D); w: (E,D,F) -> (E,C,F) or (B,E,C,F) in x's
-    dtype, each product accumulated in f32.  impl: auto | ref."""
+def _forward(x: torch.Tensor, w: torch.Tensor, impl: str) -> torch.Tensor:
     if impl == "ref" or (impl == "auto" and x.device.type == "cpu"):
         return gmm_ref(x, w)
     if impl != "auto":
         raise ValueError(f"unknown impl {impl!r}; expected auto | ref")
     return _launch(x, w)
+
+
+def gmm_bwd_ref(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The products' gradients, plain PyTorch: dx = dy w^T per expert and
+    dw = sum over (b, c) of x^T dy, each accumulated in f32 (f64 for f64
+    inputs, as the forward) and cast to x's and w's dtypes (what
+    ``jax.grad`` of the reference's einsum gives)."""
+    acc = torch.promote_types(dy.dtype, torch.float32)
+    dyf = dy.to(acc)
+    dx = torch.einsum("...ecf,edf->...ecd", dyf, w.to(acc)).to(x.dtype)
+    dw = torch.einsum("...ecd,...ecf->edf", x.to(acc), dyf).to(w.dtype)
+    return dx, dw
+
+
+class GroupedMatmul(torch.autograd.Function):
+    """The expert products under autograd: the forward is the kernel (or
+    the plain version, by ``impl``), the backward ``gmm_bwd_ref``.  The
+    reference has no gmm backward: it trains through einsums under
+    ``jax.grad``."""
+
+    @staticmethod
+    def forward(ctx, x, w, impl: str):
+        ctx.save_for_backward(x, w)
+        return _forward(x, w, impl)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = gmm_bwd_ref(x, w, dy)
+        return dx, dw, None
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *,
+                   impl: str = "auto") -> torch.Tensor:
+    """x: (E,C,D) or (B,E,C,D); w: (E,D,F) -> (E,C,F) or (B,E,C,F) in x's
+    dtype, each product accumulated in f32.  impl: auto | ref.
+    Differentiable (through ``GroupedMatmul``) when grad is enabled and x
+    or w requires grad."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return GroupedMatmul.apply(x, w, impl)
+    return _forward(x, w, impl)

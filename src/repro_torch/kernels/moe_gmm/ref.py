@@ -2,7 +2,8 @@
 path on the CPU.
 
 It computes what ``repro.kernels.moe_gmm.ref.gmm_ref`` computes: the
-per-expert products in f32, cast once to x's dtype.  It also takes the
+per-expert products in f32 (in f64 for f64 inputs, which the gradient
+checks use), cast once to x's dtype.  It also takes the
 model's ``(B,E,C,D)`` expert buffers.
 """
 
@@ -13,5 +14,6 @@ import torch
 
 def gmm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (E,C,D) or (B,E,C,D); w: (E,D,F) -> (E,C,F) or (B,E,C,F)."""
-    return torch.einsum("...ecd,edf->...ecf", x.float(),
-                        w.float()).to(x.dtype)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    return torch.einsum("...ecd,edf->...ecf", x.to(acc),
+                        w.to(acc)).to(x.dtype)

@@ -12,6 +12,9 @@ The op keeps the Pallas kernel's signature, r, k, v, w (B,S,H,P) and u
 (H,P) -> (y (B,S,H,P), final state (B,H,P,P) f32), plus the model's
 initial state.  r, k, v and w are read in place through their strides.
 
+Under autograd (``WKV``) the forward is the kernel and the backward the
+gradients of the plain version (f64), recomputed from the saved inputs.
+
 ``launches`` counts the kernel launches this process made.
 """
 
@@ -25,6 +28,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build
+from .._replay import replay_grads
 from .ref import wkv_ref
 
 launches = 0
@@ -143,15 +147,47 @@ def _launch(r, k, v, w, u, init_state):
     return y, state
 
 
+def _forward(r, k, v, w, u, init_state, impl: str):
+    if impl == "ref" or (impl == "auto" and r.device.type == "cpu"):
+        return wkv_ref(r, k, v, w, u, init_state)
+    if impl != "auto":
+        raise ValueError(f"unknown impl {impl!r}; expected auto | ref")
+    return _launch(r, k, v, w, u, init_state)
+
+
+class WKV(torch.autograd.Function):
+    """The recurrence under autograd: the forward is the kernel (or the
+    plain version, by ``impl``), returning (y, final state); the backward
+    runs ``wkv_ref`` again on the saved inputs, in f64 as its forward
+    does, and takes its gradients, for r, k, v, w, u and the initial
+    state.  The reference has no wkv backward: it trains through
+    ``wkv_chunked`` under ``jax.grad``.  The kernel's y equals the plain
+    version's, and the backward reads only the inputs, so the gradients
+    do not depend on which forward ran.  An output that got no gradient
+    (training drops the final state) arrives as None."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, init_state, impl: str):
+        ctx.save_for_backward(r, k, v, w, u, init_state)
+        ctx.set_materialize_grads(False)
+        return _forward(r, k, v, w, u, init_state, impl)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        return replay_grads(wkv_ref, ctx.saved_tensors, ctx.needs_input_grad,
+                            (dy, dstate)) + (None,)
+
+
 def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         u: torch.Tensor, init_state: Optional[torch.Tensor] = None, *,
         impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
     """r, k, v: (B,S,H,P) f32 or bf16; w: (B,S,H,P) f32 decays in (0,1);
     u: (H,P) f32 bonus; init_state: (B,H,P,P) f32 ``[k_dim, v_dim]`` or
     None.  Returns (y (B,S,H,P) in r's dtype, final_state (B,H,P,P) f32).
-    impl: auto | ref."""
-    if impl == "ref" or (impl == "auto" and r.device.type == "cpu"):
-        return wkv_ref(r, k, v, w, u, init_state)
-    if impl != "auto":
-        raise ValueError(f"unknown impl {impl!r}; expected auto | ref")
-    return _launch(r, k, v, w, u, init_state)
+    impl: auto | ref.  Differentiable (through ``WKV``) when grad is
+    enabled and an input requires grad."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (r, k, v, w, u, init_state)):
+        return WKV.apply(r, k, v, w, u, init_state, impl)
+    return _forward(r, k, v, w, u, init_state, impl)

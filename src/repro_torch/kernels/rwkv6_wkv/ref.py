@@ -5,7 +5,8 @@ It is the math of the reference model's ``repro.models.rwkv6.wkv_chunked``
 with its initial state, computed in f64 from the inputs as given (the
 reference computes in f32), the (P, P) state carried from chunk to chunk
 in f64; y and the final state are rounded once to f32, and y then to r's
-dtype.  Per chunk of 16 rows, with cum = cumsum(log max(w, 1e-8)):
+dtype (f64 inputs, which the gradient checks use, keep f64).  Per chunk
+of 16 rows, with cum = cumsum(log max(w, 1e-8)):
 
     r~ = r * exp(cum - log w)          k~ = k / max(exp(cum), 1e-37)
     y  = tril_-1(r~ k~^T) v + diag(sum_p r u k) v + r~ state
@@ -86,12 +87,14 @@ def wkv_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     state = (torch.zeros((B, H, P, P), dtype=f64, device=r.device)
              if init_state is None else init_state.to(f64))
     states_in = []
-    for c in range(nc):
+    # unbind: the backward of indexing chunk c would write a zeroed copy of
+    # the whole (B,nc,H,P,P) tensor for each chunk
+    for st, bl in zip(per_chunk_state.unbind(1), b_last.unbind(1)):
         states_in.append(state)
-        state = (state + per_chunk_state[:, c]) * b_last[:, c, ..., None]
+        state = (state + st) * bl[..., None]
     states_in = torch.stack(states_in, dim=1)        # (B,nc,H,P,P)
     y = y + torch.einsum("bcihp,bchpq->bcihq", r_t, states_in)
 
-    f32 = torch.float32
+    out = torch.promote_types(r.dtype, torch.float32)
     y = y.reshape(B, nc * CHUNK, H, P)[:, :S]
-    return y.to(f32).to(r.dtype), state.to(f32)
+    return y.to(out).to(r.dtype), state.to(out)

@@ -9,7 +9,10 @@ and at the end, and a run resumes from the newest checkpoint in
 ``--ckpt-dir`` at its ``next_batch``.  Without ``--device`` it runs on
 CUDA and raises where there is none.  The reference's mesh flags
 (``--model-parallel``, ``--production-mesh``) belong to the multi-device
-slice.  Dense (``attn``) archs only so far.
+slice.  ``--arch`` takes every ported decoder: dense (qwen3-0.6b,
+qwen3-8b, deepseek-7b, internlm2-20b), MoE with GCR-MoE admission
+(granite-moe-1b-a400m, mixtral-8x7b), Mamba2 with a shared attention
+block (zamba2-2.7b) and RWKV6 (rwkv6-7b).
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch
 from .. import resolve_device
 from ..checkpoint import CheckpointManager
 from ..config import OptimizerConfig
-from ..configs import ARCHS, get_config, get_smoke_config
+from ..configs import PORTED, get_config, get_smoke_config
 from ..convert import (load_numpy_, opt_state_from_numpy, opt_state_to_tree,
                        params_to_tree)
 from ..data import PrefetchPipeline, SyntheticTokens
@@ -36,7 +39,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[float]:
     """Runs the loop; returns the loss of each step this run took, in
     order."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True, choices=ARCHS)
+    ap.add_argument("--arch", required=True, choices=sorted(PORTED))
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced config (CPU-friendly)")
     ap.add_argument("--steps", type=int, default=100)

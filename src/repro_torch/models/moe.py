@@ -90,6 +90,28 @@ def admission_ranks(expert_idx: torch.Tensor, n_experts: int,
     return (claims.gather(1, flat) - 1).reshape(B, S, k)
 
 
+class _Dispatch(torch.autograd.Function):
+    """The expert buffers' rows: token ``src[i]`` of x (B*S, D) for each
+    capacity slot i, a zero row where ``src[i]`` is B*S (an unfilled
+    slot).  The backward gives each token the sum of its k slots'
+    gradients (``slot`` (B*S, k), a dropped one at the discard slot, which
+    reads zero): one gather and a sum, where autograd's backward of the
+    gather would add every unfilled slot's gradient into the zero row one
+    after another."""
+
+    @staticmethod
+    def forward(ctx, x, src, slot):
+        ctx.save_for_backward(slot)
+        return torch.cat([x, x.new_zeros(1, x.shape[1])])[src]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (slot,) = ctx.saved_tensors
+        rows = torch.cat([grad, grad.new_zeros(1, grad.shape[1])])
+        return (rows.index_select(0, slot.reshape(-1))
+                .view(*slot.shape, -1).sum(1), None, None)
+
+
 def moe_mlp(
     p: MoE,
     x: torch.Tensor,                 # (B, S, D)
@@ -125,17 +147,19 @@ def moe_mlp(
     src = torch.full((B * E * cap + 1,), B * S, dtype=torch.long,
                      device=x.device)
     src.index_copy_(0, slot.reshape(-1), token.reshape(-1))
-    x_pad = torch.cat([x.reshape(B * S, D), x.new_zeros(1, D)])
-    expert_in = x_pad[src[:-1]].view(B, E, cap, D)
+    expert_in = _Dispatch.apply(x.reshape(B * S, D), src[:-1],
+                                slot.reshape(B * S, k)).view(B, E, cap, D)
 
     h = F.silu(grouped_matmul(expert_in, p.wi_gate, impl=impl)) \
         * grouped_matmul(expert_in, p.wi_up, impl=impl)
     expert_out = grouped_matmul(h, p.wo, impl=impl)            # (B,E,C,D)
 
     # --- gather back (dropped slots read slot 0 of their expert, under a
-    # zero gate, as in the reference) and combine in x's dtype -----------
-    gathered = expert_out.reshape(B * E * cap, D)[
-        ((rows * E + expert_idx) * cap + flat_c).reshape(-1)]
+    # zero gate, as in the reference) and combine in x's dtype; the
+    # gather's backward adds the dropped slots' zero gradients into slot
+    # 0, which leaves it as it is -------------------------------------
+    gathered = expert_out.reshape(B * E * cap, D).index_select(
+        0, ((rows * E + expert_idx) * cap + flat_c).reshape(-1))
     gathered = gathered.view(B, S, k, D) * gate_vals[..., None].to(x.dtype)
     out = gathered.sum(dim=2)
 

@@ -7,8 +7,7 @@ MLP) applied after every ``shared_attn_every`` layers.
 
 Three modes share the block code, as in the reference:
   train   : ``forward_train``, the full-sequence forward to the loss, each
-            block recomputed in the backward pass (dense ``attn`` blocks
-            only so far);
+            layer recomputed in the backward pass;
   prefill : full prompt, caches written (ring buffers / recurrent states);
   decode  : one token against the caches (the serve step);
 plus ``forward_logits``, the full-sequence forward without a cache that
@@ -54,7 +53,7 @@ def _check_supported(cfg: ModelConfig) -> None:
                                        {"rwkv6"})
             or cfg.n_enc_layers or cfg.frontend != "none"):
         raise NotImplementedError(
-            f"{cfg.name}: repro_torch serves attention decoders with a dense "
+            f"{cfg.name}: repro_torch runs attention decoders with a dense "
             "or MoE MLP, Mamba2 stacks and RWKV6 stacks only so far "
             "(encoder-decoder and frontends are later slices)")
 
@@ -288,43 +287,49 @@ def _stack(cfg: ModelConfig, params: Transformer, x, positions,
     """Run the decoder stack (the reference's layer scan, as a loop), with
     the shared block after layer i when (i + 1) % shared_attn_every == 0,
     on shared cache i // shared_attn_every.  Returns (x, caches, aux), aux
-    averaged over layers.  ``remat`` (training, dense blocks) recomputes
-    each block in the backward pass, the reference's
-    ``jax.checkpoint(unit)``."""
+    averaged over layers.  ``remat`` (training, no caches) recomputes each
+    unit in the backward pass, the reference's ``jax.checkpoint(unit)``:
+    a unit is one layer and, where it follows that layer, the shared
+    block."""
     k = cfg.shared_attn_every
     auxes = []
     for i, lp in enumerate(params.layers):
-        lcache = caches["layers"][i] if caches is not None else None
+        shared = params.shared_attn if k and (i + 1) % k == 0 else None
+        lcache = scache = None
+        if caches is not None:
+            lcache = caches["layers"][i]
+            scache = caches["shared"][i // k] if shared is not None else None
+        args = (cfg, lp, shared, x, positions, lcache, scache, cache_pos,
+                decode, impl, moe_offset)
         if remat:
-            x, aux = checkpoint(_train_block, cfg, lp, x, positions, impl,
-                                moe_offset, use_reentrant=False)
-            auxes.append(aux)
-        elif hasattr(lp, "mamba"):
-            x = _apply_mamba_block(cfg, lp, x, lcache, decode=decode,
-                                   impl=impl)
-        elif hasattr(lp, "rwkv"):
-            x = _apply_rwkv_block(cfg, lp, x, lcache, decode=decode,
-                                  impl=impl)
+            x, aux = checkpoint(_unit, *args, use_reentrant=False)
         else:
-            x, _, aux = _apply_attn_block(cfg, lp, x, positions, lcache,
-                                          cache_pos, decode=decode,
-                                          impl=impl, moe_offset=moe_offset)
+            x, aux = _unit(*args)
+        if aux:
             auxes.append(aux)
-        if k and (i + 1) % k == 0:
-            scache = caches["shared"][i // k] if caches is not None else None
-            x, _, _ = _apply_attn_block(cfg, params.shared_attn, x,
-                                        positions, scache, cache_pos,
-                                        decode=decode, impl=impl)
     aux = ({key: torch.stack([a[key] for a in auxes]).mean()
             for key in auxes[0]} if auxes else {})
     return x, caches, aux
 
 
-def _train_block(cfg: ModelConfig, p: Block, x, positions, impl: str,
-                 moe_offset):
-    x, _, aux = _apply_attn_block(cfg, p, x, positions, None, 0,
-                                  decode=False, impl=impl,
-                                  moe_offset=moe_offset)
+def _unit(cfg: ModelConfig, p: Block, shared: Optional[Block], x,
+          positions, lcache: Optional[Dict], scache: Optional[Dict],
+          cache_pos: int, decode: bool, impl: str, moe_offset):
+    """One layer and, where one follows it, the shared block; the caches
+    (None without) are updated in place.  Returns (x, aux), aux the MoE
+    metrics (empty for the other kinds)."""
+    aux = {}
+    if hasattr(p, "mamba"):
+        x = _apply_mamba_block(cfg, p, x, lcache, decode=decode, impl=impl)
+    elif hasattr(p, "rwkv"):
+        x = _apply_rwkv_block(cfg, p, x, lcache, decode=decode, impl=impl)
+    else:
+        x, _, aux = _apply_attn_block(cfg, p, x, positions, lcache,
+                                      cache_pos, decode=decode, impl=impl,
+                                      moe_offset=moe_offset)
+    if shared is not None:
+        x, _, _ = _apply_attn_block(cfg, shared, x, positions, scache,
+                                    cache_pos, decode=decode, impl=impl)
     return x, aux
 
 
@@ -352,18 +357,17 @@ def forward_train(cfg: ModelConfig, params: Transformer, batch: Dict,
     """Full-sequence forward to the loss; returns (loss, metrics).
 
     ``batch`` holds int ``tokens`` and ``targets`` (B, S).  Embeddings, the
-    stack (each block under ``torch.utils.checkpoint`` when ``remat``), the
-    final norm, then ``chunked_softmax_xent`` over the LM head, plus 0.01
-    times each ``*_loss`` aux of the stack (none for dense blocks).
-    Dense ``attn`` blocks only: the ``moe``, ``mamba2`` and ``rwkv6``
-    kinds raise, since their CUDA kernels have no backward yet.
-    ``impl="ref"`` sends attention to its plain version on the card."""
-    kinds = set(cfg.block_pattern)
-    if kinds != {"attn"} or cfg.shared_attn_every:
-        raise NotImplementedError(
-            f"{cfg.name}: repro_torch trains dense attention decoders only "
-            f"so far; block kinds {sorted(kinds)} (shared block every "
-            f"{cfg.shared_attn_every}) have kernels without a backward")
+    stack (each layer, with the shared block that follows it, under
+    ``torch.utils.checkpoint`` when ``remat``), the final norm, then
+    ``chunked_softmax_xent`` over the LM head, plus 0.01 times each
+    ``*_loss`` aux of the stack (the MoE's load-balance and z losses,
+    averaged over layers).  Every decoder kind trains: the flash, gmm, ssd
+    and wkv kernels run their forwards inside autograd ops whose
+    backwards are plain PyTorch.  ``moe_offset`` rotates the MoE's
+    admission order (GCR-MoE).  ``impl="ref"`` sends every kernel to its
+    plain version on the card.  Encoder-decoder and frontend configs
+    raise ``NotImplementedError``."""
+    _check_supported(cfg)
     tokens = batch["tokens"]
     x = params.embed[tokens]
     positions = _positions(0, tokens.shape[1], x.device)

@@ -24,12 +24,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
     """Returns train_step(params, opt_state, batch, step) ->
         (params, opt_state, metrics).
 
-    Each block is recomputed in the backward pass (the reference's
-    default ``remat=True``).  ``microbatches > 1`` accumulates gradients
+    Each layer is recomputed in the backward pass (the reference's
+    default ``remat=True``).  With ``cfg.gcr_moe`` the MoE's admission
+    order rotates by a stride of 4099 tokens every
+    ``gcr_moe_rotate_every`` steps.  ``microbatches > 1`` accumulates gradients
     over batch splits (the batch's leading axis cut into equal consecutive
     parts), in f32, and averages them and the loss over the splits: peak
     activation memory divides by the microbatch count.  ``impl="ref"``
-    sends attention to its plain version on the card (for comparing)."""
+    sends every kernel to its plain version on the card (for
+    comparing)."""
 
     def grads_of(params, batch, step):
         moe_offset = None

@@ -49,6 +49,9 @@ def _ulp_tol(want: np.ndarray) -> float:
     ("granite-moe-1b-a400m", {"moe_capacity_factor": 8.0}),
     ("zamba2-2.7b", {}),
     ("rwkv6-7b", {}),
+    ("deepseek-7b", {}),
+    ("internlm2-20b", {}),
+    ("qwen3-8b", {}),
 ])
 def test_bf16_prefill_and_decode_logits_match_jax(arch, over):
     jcfg = dataclasses.replace(jget_smoke(arch), **over)

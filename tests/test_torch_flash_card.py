@@ -78,6 +78,9 @@ def test_cuda_kernel_takes_strided_views(pad):
     ("granite-moe-1b-a400m", 16, 8, 64),
     ("zamba2-2.7b", 32, 32, 80),
     ("qwen3-0.6b", 16, 8, 128),
+    ("deepseek-7b", 32, 32, 128),
+    ("internlm2-20b", 48, 8, 128),
+    ("qwen3-8b", 32, 8, 128),
 ])
 def test_served_prefill_shapes(arch, Hq, Hkv, D):
     """The served models' prefill attention: 3 slots of 1024 tokens,
@@ -128,7 +131,7 @@ def _gqa_inputs(gen, dtype, D, groups, B=2, S=300, Hkv=2):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("groups", [1, 2, 4])
+@pytest.mark.parametrize("groups", [1, 2, 4, 6])
 @pytest.mark.parametrize("D", [64, 80, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_lse_matches_plain_on_card(dtype, D, groups):
@@ -153,7 +156,7 @@ def test_lse_matches_plain_on_card(dtype, D, groups):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("groups", [1, 2, 4])
+@pytest.mark.parametrize("groups", [1, 2, 4, 6])
 @pytest.mark.parametrize("D", [64, 80, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_autograd_with_kernel_forward_matches_plain(dtype, D, groups):
@@ -172,5 +175,42 @@ def test_autograd_with_kernel_forward_matches_plain(dtype, D, groups):
         grads[impl] = torch.autograd.grad(out, leaves, dout)
     for got, want, t in zip(grads["auto"], grads["ref"], (q, k, v)):
         assert got.shape == t.shape and got.dtype == t.dtype
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= GRAD_TOL[dtype] * want.float().abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch,Hq,Hkv", [
+    ("deepseek-7b", 32, 32),
+    ("internlm2-20b", 48, 8),
+    ("qwen3-8b", 32, 8),
+])
+def test_dense_train_layouts_lse_and_autograd(arch, Hq, Hkv, dtype):
+    """The three dense configs' attention at head dim 128 (MHA 32/32, a
+    query-head group of 6, 32/8), one row of S = T = 1024, causal: the
+    output, the lse and the autograd op's dq, dk, dv with the kernel
+    forward against the plain forward."""
+    gen = _card()
+    dt = getattr(torch, dtype)
+    S, D = 1024, 128
+    q = torch.randn((1, S, Hq, D), generator=gen, device="cuda", dtype=dt)
+    k, v = (torch.randn((1, S, Hkv, D), generator=gen, device="cuda",
+                        dtype=dt) for _ in range(2))
+    dout = torch.randn(q.shape, generator=gen, device="cuda", dtype=dt)
+    pos = torch.arange(S, dtype=torch.int32, device="cuda")
+    outs, lses, grads = {}, {}, {}
+    for impl in ("auto", "ref"):
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        before = ops.launches
+        outs[impl], lses[impl] = ops.flash_attention_fwd(
+            *leaves, pos, pos, impl=impl, return_lse=True)
+        assert ops.launches == before + (impl == "auto")
+        grads[impl] = torch.autograd.grad(outs[impl], leaves, dout)
+    torch.testing.assert_close(outs["auto"].float(), outs["ref"].float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    torch.testing.assert_close(lses["auto"], lses["ref"],
+                               atol=LSE_TOL[dtype], rtol=LSE_TOL[dtype])
+    for got, want in zip(grads["auto"], grads["ref"]):
         err = (got.float() - want.float()).abs().max().item()
         assert err <= GRAD_TOL[dtype] * want.float().abs().max().item()

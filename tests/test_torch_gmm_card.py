@@ -9,7 +9,9 @@ machine:
 
 Tolerances, normalised by max |want| (tests/test_kernels.py): f32 1e-5,
 summation order only (the kernel keeps f32 off the tf32 tensor cores);
-bf16 2e-2, one rounding of the f32 sum to bf16 in both.
+bf16 2e-2, one rounding of the f32 sum to bf16 in both.  The autograd
+op's backward is plain and reads only x, w and dy, so its gradients with
+the kernel forward equal those with the plain forward.
 """
 
 import pytest
@@ -139,3 +141,55 @@ def test_bf16_wide_half_tiles_ending_inside_a_batch_row(C):
 def test_bf16_narrow_n(B):
     """The narrow kernel's N (an expert's rows) at 8, 16, 24 and 64."""
     _run(B, 8, 8, 1024, 512, 1024 ** -0.5, "narrow")
+
+
+# granite-moe-1b-a400m's expert products when training B4 x S1024: C =
+# _capacity(1024 tokens) = 320, (B, E, C, D, F) of wi and of wo
+TRAIN_PRODUCTS = {"wi": (4, 32, 320, 1024, 512), "wo": (4, 32, 320, 512, 1024)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("product", ["wi", "wo"])
+def test_autograd_with_kernel_forward_matches_plain(dtype, product):
+    """The ``GroupedMatmul`` op at granite's train shapes: the output with
+    the kernel forward (one launch) against the plain forward, and dx, dw
+    equal."""
+    gen = _card()
+    B, E, C, D, F = TRAIN_PRODUCTS[product]
+    dt = getattr(torch, dtype)
+    x = torch.randn((B, E, C, D), generator=gen, device="cuda").to(dt)
+    w = (torch.randn((E, D, F), generator=gen, device="cuda")
+         * D ** -0.5).to(dt)
+    dy = torch.randn((B, E, C, F), generator=gen, device="cuda").to(dt)
+    outs, grads = {}, {}
+    for impl in ("auto", "ref"):
+        leaves = [t.detach().requires_grad_(True) for t in (x, w)]
+        before = ops.launches
+        outs[impl] = ops.grouped_matmul(*leaves, impl=impl)
+        assert ops.launches == before + (impl == "auto")
+        assert type(outs[impl].grad_fn).__name__ == "GroupedMatmulBackward"
+        grads[impl] = torch.autograd.grad(outs[impl], leaves, dy)
+    _assert_close(outs["auto"], outs["ref"], dtype)
+    for got, want, t in zip(grads["auto"], grads["ref"], (x, w)):
+        assert got.shape == t.shape and got.dtype == t.dtype
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,kernel", [(320, "wide"), (8, "narrow")])
+def test_kernel_reads_weights_updated_in_place(C, kernel):
+    """AdamW updates the weights in place, so their address stays and the
+    cached tensor map is reused: a call after an in-place update reads the
+    new values."""
+    gen = _card()
+    x = torch.randn((2, 4, C, 256), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    w = (torch.randn((4, 256, 128), generator=gen, device="cuda")
+         * 256 ** -0.5).to(torch.bfloat16)
+    for _ in range(2):
+        got = ops.grouped_matmul(x, w)
+        assert ops.last_kernel == kernel
+        _assert_close(got, ops.grouped_matmul(x, w, impl="ref"), "bfloat16")
+        with torch.no_grad():
+            w.mul_(-0.5).add_(0.01)

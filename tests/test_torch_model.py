@@ -51,7 +51,8 @@ def _close(got, want, tol=1e-5):
 def test_configs_copied_field_for_field():
     assert sorted(PORTED) == sorted([ARCH, "granite-moe-1b-a400m",
                                      "mixtral-8x7b", "zamba2-2.7b",
-                                     "rwkv6-7b"])
+                                     "rwkv6-7b", "deepseek-7b",
+                                     "internlm2-20b", "qwen3-8b"])
     for arch in PORTED:
         for jcfg, cfg in ((jget_config(arch), get_config(arch)),
                           (jget_smoke(arch), get_smoke_config(arch))):
@@ -60,7 +61,7 @@ def test_configs_copied_field_for_field():
             assert (cfg.head_dim, cfg.vocab_padded, cfg.rwkv_heads) == (
                 jcfg.head_dim, jcfg.vocab_padded, jcfg.rwkv_heads)
     others = [a for a in ARCHS if a not in PORTED]
-    assert len(others) == 5
+    assert len(others) == 2
     for arch in others:
         with pytest.raises(NotImplementedError, match="not ported"):
             get_config(arch)
@@ -181,4 +182,31 @@ def test_sliding_window_ring_buffer():
     for t, (logits, jlogits, _, _) in enumerate(pairs[1:]):
         errs.append(np.abs(logits[:, 0].numpy() - ref[:, S + t]).max())
         _close(logits, jlogits)
+    assert max(errs) < 1e-4, errs
+
+
+@pytest.mark.parametrize("window", [0, 16])
+@pytest.mark.parametrize("arch", ["deepseek-7b", "internlm2-20b",
+                                  "qwen3-8b"])
+def test_dense_configs_prefill_decode_match_jax(arch, window):
+    """The three other dense configs (MHA 4/4, GQA 4/2 without QK norm,
+    qwen3-8b's GQA with QK norm) in f32: prefill and 4 decodes against the
+    reference (1e-5, logits and caches) and against the full forward at
+    the same positions (1e-4, teacher forcing)."""
+    jcfg = dataclasses.replace(jget_smoke(arch), dtype="float32",
+                               sliding_window=window)
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
+                              sliding_window=window)
+    B, S, EXTRA = 2, 24, 4
+    toks = np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (B, S + EXTRA)).astype(np.int32)
+    params, pairs = _run_both(jcfg, cfg, toks, max_len=S + EXTRA,
+                              n_decode=EXTRA)
+    for logits, jlogits, cache, jcache in pairs:
+        _close(logits, jlogits)
+        for name in ("k", "v"):
+            _close(cache["layers"][name], jcache["layers"][name])
+    ref = forward_logits(cfg, params, torch.from_numpy(toks)).numpy()
+    errs = [np.abs(logits[:, 0].numpy() - ref[:, S - 1 + t]).max()
+            for t, (logits, _, _, _) in enumerate(pairs)]
     assert max(errs) < 1e-4, errs

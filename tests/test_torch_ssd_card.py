@@ -6,7 +6,9 @@ so they run on the GPU machine:
 
 Tolerances: f32 1e-3 atol = rtol (tests/test_kernels.py; the kernel's
 chunk of 64 against the plain version's 256 moves y by about 4e-5); bf16
-2e-2 normalised by max |want|, one rounding of y to bf16 in both.
+2e-2 normalised by max |want|, one rounding of y to bf16 in both.  The
+autograd op's backward replays the plain version on the saved inputs, so
+its gradients with the kernel forward equal those with the plain forward.
 """
 
 import pytest
@@ -135,3 +137,27 @@ def test_cuda_kernel_decays_near_zero_and_strongly_negative(dtype, scale):
         a = a.clamp(min=-40.0)
         a[:, ::7] = -10.0
     _check_case(gen, B, S, H, P, N, dtype, True, a)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_autograd_with_kernel_forward_matches_plain(dtype):
+    """The ``SSD`` op at zamba2's train shape (B4 S1024 H80 P64 N64, zero
+    initial state, the final state dropped as training drops it): y with
+    the kernel forward (one launch) against the plain forward, and the
+    gradients of xdt, a, B and C equal."""
+    gen = _card()
+    dt = getattr(torch, dtype)
+    inputs = _inputs(gen, 4, 1024, 80, 64, 64, dt)
+    dy = torch.randn(inputs[0].shape, generator=gen, device="cuda").to(dt)
+    ys, grads = {}, {}
+    for impl in ("auto", "ref"):
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        before = ops.launches
+        ys[impl], _ = ops.ssd(*leaves, impl=impl)
+        assert ops.launches == before + (impl == "auto")
+        grads[impl] = torch.autograd.grad(ys[impl], leaves, dy)
+    _assert_close(ys["auto"], ys["ref"], dtype)
+    for got, want, t in zip(grads["auto"], grads["ref"], inputs):
+        assert got.shape == t.shape and got.dtype == t.dtype
+        assert torch.equal(got, want)

@@ -313,13 +313,12 @@ class _Stop(Exception):
     pass
 
 
-def test_launcher_save_stop_resume_gives_straight_losses(tmp_path,
-                                                         monkeypatch):
+def _save_stop_resume(tmp_path, monkeypatch, arch):
     """``--smoke --device cpu --steps 4 --ckpt-every 2``: straight, then
     the same run stopped as step 2 begins (its checkpoint at 2 started)
     and resumed, which starts at next_batch 2 and gives the straight
     run's losses for steps 2 and 3."""
-    args = ["--arch", ARCH, "--smoke", "--device", "cpu", "--steps", "4",
+    args = ["--arch", arch, "--smoke", "--device", "cpu", "--steps", "4",
             "--ckpt-every", "2", "--batch", "2", "--seq", "32"]
     straight = train.main(args + ["--ckpt-dir", str(tmp_path / "straight")])
     assert len(straight) == 4 and all(np.isfinite(straight))
@@ -346,6 +345,21 @@ def test_launcher_save_stop_resume_gives_straight_losses(tmp_path,
     resumed = train.main(args + ["--ckpt-dir", run])
     assert resumed == straight[2:]
     assert CheckpointManager(run).latest_step() == 4
+
+
+def test_launcher_save_stop_resume_gives_straight_losses(tmp_path,
+                                                         monkeypatch):
+    """The dense arch through ``_save_stop_resume``."""
+    _save_stop_resume(tmp_path, monkeypatch, ARCH)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "zamba2-2.7b",
+                                  "rwkv6-7b"])
+def test_launcher_trains_and_resumes_every_kind(tmp_path, monkeypatch,
+                                                arch):
+    """The MoE, Mamba2 and RWKV6 smoke configs through the same save,
+    stop and resume (``_save_stop_resume``)."""
+    _save_stop_resume(tmp_path, monkeypatch, arch)
 
 
 def test_launcher_without_device_raises_when_cuda_is_absent(tmp_path):

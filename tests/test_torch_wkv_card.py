@@ -9,7 +9,9 @@ final state, against the plain version's f32 result on the same inputs;
 a bf16 y adds its one rounding, at most half a bf16 ulp (2^-8 relative).
 Both sum in f64 and round once, so y also equals the plain version's y
 in its own dtype, bit for bit, in all but a vanishing share of places
-(where two f64 sums straddle an f32 rounding boundary).
+(where two f64 sums straddle an f32 rounding boundary).  The autograd
+op's backward replays the plain version (f64) on the saved inputs, so
+its gradients with the kernel forward equal those with the plain forward.
 """
 
 import pytest
@@ -137,3 +139,29 @@ def test_cuda_kernel_decays_at_the_rate_cap(dtype, P, all_at_cap):
     w = torch.exp(-torch.clamp(rate, max=5.0))
     _compare(r, k, v, w, u,
              torch.randn((B, H, P, P), generator=gen, device="cuda"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_autograd_with_kernel_forward_matches_plain(dtype):
+    """The ``WKV`` op at rwkv6-7b's train shape (B4 S1024 H64 P64, no
+    initial state, the final state dropped as training drops it): y with
+    the kernel forward (one launch) against the plain forward, and the
+    gradients of r, k, v, w and u equal."""
+    gen = _card()
+    dt = getattr(torch, dtype)
+    inputs = _inputs(gen, 4, 1024, 64, 64, dt, 0.5)
+    dy = torch.randn(inputs[0].shape, generator=gen, device="cuda").to(dt)
+    ys, grads = {}, {}
+    for impl in ("auto", "ref"):
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        before = ops.launches
+        ys[impl], _ = ops.wkv(*leaves, impl=impl)
+        assert ops.launches == before + (impl == "auto")
+        grads[impl] = torch.autograd.grad(ys[impl], leaves, dy)
+    torch.testing.assert_close(ys["auto"].float(), ys["ref"].float(),
+                               atol=TOL, rtol=TOL)
+    assert (ys["auto"] == ys["ref"]).float().mean().item() >= 0.9999
+    for got, want, t in zip(grads["auto"], grads["ref"], inputs):
+        assert got.shape == t.shape and got.dtype == t.dtype
+        assert torch.equal(got, want)
