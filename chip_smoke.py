@@ -12,17 +12,20 @@ sources (one ``nvcc`` each, started together) and then:
    windowed and non-causal, plus GQA, ragged lengths, head dim 80,
    ring-buffer positions with unwritten (-1) slots (also with S and T
    ragged against the kernel's 128-row tiles, at head dims 80 and 128),
-   strided views, the served attention models' prefill shapes and the
+   strided views, the served attention models' prefill shapes, the
    other dense configs' head layouts (MHA 32/32, groups of 6 and 4, at
-   head dim 128); then
-   what training reads of it: its log-sum-exp output at those shapes and
-   the train shape, and the autograd op's gradients with the kernel
-   forward against those with the plain forward;
+   head dim 128) and whisper-base's three attentions (MHA 8/8 at head dim
+   64: the encoder's, non-causal at S = T = 512; the cross-attention,
+   non-causal with 1024 queries over 512 keys; the decoder's, causal at
+   1024); then what training reads of it: its log-sum-exp output at
+   those shapes and the train shapes, and the autograd op's gradients
+   with the kernel forward against those with the plain forward;
 3. times the kernel, the plain version and PyTorch's
    ``scaled_dot_product_attention`` (a yardstick only; the port never
    calls it) at qwen3's, granite's and zamba2's prefill shapes (head dims
-   128, 64 and 80), in device time and in CUDA events, beside the card's
-   bound;
+   128, 64 and 80) and whisper-base's two non-causal ones, in device
+   time (the kernel's and SDPA's three times each, with the kernels SDPA
+   ran) and in CUDA events, beside the card's bound;
 4. holds the grouped expert matmul (MoE) kernels against their plain
    version in f32 and bf16 (bf16 has a wide kernel for many rows an
    expert and a narrow one for few; each case checks which ran): the
@@ -59,7 +62,14 @@ sources (one ``nvcc`` each, started together) and then:
    wave in f32 on the plain versions); for granite it also counts the
    tokens whose top-8 experts agree between the two.  Each run then
    profiles one prefill wave and a few decode steps (device busy time,
-   idle share, the heaviest kernels) and frees its model;
+   idle share, the heaviest kernels) and frees its model; then prefills
+   and decodes whisper-base (6 encoder and 6 decoder layers, f32 frames)
+   and internvl2-2b (24 layers, 256 f32 patches before 768 tokens) at
+   full width through ``make_prefill`` and ``make_decode_step`` (no
+   engine serves them), 3 prompts of 1024 positions and 16 greedy steps:
+   flash launches (18 and 24 a prefill, none a decode step), the
+   prefill logits against the plain versions', finite decode logits and
+   a profile;
 8. trains full-width qwen3-0.6b (28 layers, bf16 weights, f32 AdamW
    moments) on B4 x S1024 through ``steps.make_train_step``: one step's
    loss and gradients with the kernels against plain attention from the
@@ -76,7 +86,11 @@ sources (one ``nvcc`` each, started together) and then:
    timed steps with every kernel's launches counted, a profile, and the
    kind's plain backward alone): granite-moe-1b-a400m and zamba2-2.7b at
    full width and depth, rwkv6-7b at full width and 8 of its 32 layers
-   (its bf16 gradients held equal to the plain versions');
+   (its bf16 gradients held equal to the plain versions'), whisper-base
+   (f32 at full depth too) and internvl2-2b at full width and depth;
+   after the launcher it runs ``launch/train.py`` for 2 steps on each
+   frontend arch's smoke config, fed by the pipeline's f32 frames and
+   patches;
 9. prints one JSON line describing every kernel of the path, then, as
    the last line, ``{"ok": true, "device": {...}}``.
 
@@ -156,6 +170,16 @@ FLASH_SERVED = [("granite-moe-1b-a400m", 16, 8, 64), ("qwen3-0.6b", 16, 8, 128),
 # in f32 and bf16 (forward, lse and the autograd op's gradients)
 FLASH_DENSE = [("deepseek-7b", 32, 32, 128), ("internlm2-20b", 48, 8, 128),
                ("qwen3-8b", 32, 8, 128)]
+# whisper-base's three attentions at its prefill and train shapes, all MHA
+# 8/8 at head dim 64: (label, S, T, causal).  The encoder's self-attention
+# over the 512 frames of a 1024-token prompt, the decoder's cross-attention
+# from its 1024 positions over them (more queries than keys) and the
+# decoder's self-attention.  internvl2-2b's attention is qwen3-0.6b's
+# layout (16/8, D128), held above.
+WHISPER_HEADS = (8, 8, 64)
+FLASH_WHISPER = [("whisper-base encoder", 512, 512, False),
+                 ("whisper-base cross", 1024, 512, False),
+                 ("whisper-base decoder", 1024, 1024, True)]
 # the kernel's log-sum-exp output (the backward's input) against the plain
 # version's, atol = rtol: f32 summation order only (the output's TOL);
 # bf16: both take the same exact products of the bf16 inputs and sum them
@@ -171,6 +195,10 @@ GRAD_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2}
 # the kernels line's flash entry leads with the first
 FLASH_TIMED = {"qwen3-0.6b": 128, "granite-moe-1b-a400m": 64,
                "zamba2-2.7b": 80}
+# and the two non-causal whisper shapes, at its prefill's B
+FLASH_TIMED_WHISPER = ("whisper-base encoder", "whisper-base cross")
+# device-time runs of the kernel and of SDPA at each timed shape
+TIMING_RUNS = 3
 # the port's CUDA kernels, as the profiler names them
 PORT_KERNELS = ("::flash_fwd_", "::gmm_", "::ssd_", "::wkv_")
 
@@ -199,6 +227,12 @@ TRAIN_F32_LAYERS = 4
 RWKV_TRAIN_LAYERS = 8
 KIND_TRAIN = [("granite-moe-1b-a400m", None), ("zamba2-2.7b", None),
               ("rwkv6-7b", RWKV_TRAIN_LAYERS)]
+# the encoder-decoder and the vision frontend, trained the same way at
+# full width and depth: whisper-base (about 110 M parameters, in f32 at
+# its full depth too) and internvl2-2b (about 1.89 B, about 23 GB of
+# weights, f32 AdamW moments and gradients at 12 bytes a parameter); each
+# step's batch comes from SyntheticTokens, f32 frames or patches included
+FRONTEND_TRAIN = [("whisper-base", None), ("internvl2-2b", None)]
 # the launcher (launch/train.py's main): once at full width for
 # LAUNCH_STEPS steps with only its final save (a full-width checkpoint
 # holds 12 bytes a parameter on disk, bf16 widened to f32 and two f32
@@ -231,6 +265,23 @@ SERVED = [
     ("rwkv6-7b", dict(
         n_layers=32, d_model=4096, d_ff=14336, vocab_size=65536,
         block_pattern=("rwkv6",), rwkv_head_dim=64, rwkv_heads=64)),
+]
+# the encoder-decoder and frontend archs, which no engine serves (the
+# reference's cannot: its prefill batch holds only tokens): prefilled and
+# decoded through make_prefill and make_decode_step at full width and
+# depth, N_SLOTS prompts of PROMPT_LEN positions (whisper: PROMPT_LEN
+# tokens and PROMPT_LEN // 2 f32 frames; internvl2: 256 f32 patches and
+# PROMPT_LEN - 256 tokens), GEN_LEN greedy decode steps; with the
+# published widths their configs must have
+FRONTEND = [
+    ("whisper-base", dict(
+        n_layers=6, n_enc_layers=6, d_model=512, n_heads=8, n_kv_heads=8,
+        head_dim=64, d_ff=2048, vocab_size=51865, block_pattern=("attn",),
+        frontend="audio_stub", frontend_dim=80, enc_seq_divisor=2)),
+    ("internvl2-2b", dict(
+        n_layers=24, d_model=2048, n_heads=16, n_kv_heads=8, head_dim=128,
+        d_ff=8192, vocab_size=92553, block_pattern=("attn",),
+        frontend="vision_stub", frontend_dim=1024, n_patches=256)),
 ]
 # prefill logits, kernels vs plain versions, both in bf16: flash carries P
 # as a bf16 hi + lo pair and sums in another order than plain attention
@@ -315,10 +366,24 @@ def device_ms(torch, fn, iters: int = 20) -> float:
     raise SmokeFailure("the profiler saw no device time in 3 tries")
 
 
+def kernel_names(torch, fn) -> list:
+    """The names of the CUDA kernels one ``fn()`` runs, in order."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name[:80] for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def flash_kernel_phase(torch, fa, gen):
     """Every case: kernel vs plain on the same inputs.  Returns the max
     abs error at the served models' prefill shapes and the inputs of each
-    of those shapes, by arch, for the timing."""
+    of those shapes, by arch, and of whisper-base's non-causal prefill
+    shapes, by label, for the timing."""
     def rnd(shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
 
@@ -409,8 +474,24 @@ def flash_kernel_phase(torch, fa, gen):
         positional(f"strided q/k/v views of a fused qkv {short}", dtype,
                    q, k, v, arange(384), arange(384), 0, True)
 
+    # whisper-base's encoder, cross and decoder attention at its prefill
+    # shape (N_SLOTS prompts of PROMPT_LEN tokens, half as many frames)
+    inputs = {}
+    Hq, Hkv, D = WHISPER_HEADS
+    for dtype in (torch.float32, torch.bfloat16):
+        short = str(dtype).replace("torch.", "")
+        for label, S, T, causal in FLASH_WHISPER:
+            B = N_SLOTS
+            q = rnd((B, S, Hq, D), dtype)
+            k, v = rnd((B, T, Hkv, D), dtype), rnd((B, T, Hkv, D), dtype)
+            positional(f"{label} B{B} S{S} T{T} Hq{Hq} Hkv{Hkv} D{D} "
+                       f"causal={causal} {short}", dtype, q, k, v,
+                       arange(S), arange(T), 0, causal)
+            if dtype == torch.bfloat16 and label in FLASH_TIMED_WHISPER:
+                inputs[label] = (q, k, v, arange(S), arange(T))
+
     # the served models' prefill shapes
-    errs, inputs = [], {}
+    errs = []
     for arch, Hq, Hkv, D in FLASH_SERVED:
         B, S = N_SLOTS, PROMPT_LEN
         q = rnd((B, S, Hq, D), torch.bfloat16)
@@ -425,82 +506,99 @@ def flash_kernel_phase(torch, fa, gen):
 
 def flash_train_phase(torch, fa, gen):
     """What training reads of the kernel: its log-sum-exp output against
-    the plain version's at the served prefill shapes and qwen3-0.6b's
-    train shape, f32 and bf16, with the output asked for with the LSE
-    equal bit for bit to the output without (a null LSE pointer changes
-    nothing else); then the autograd op's dq, dk, dv with the kernel
-    forward against those with the plain forward, at the train shape.
-    Returns the largest LSE error."""
+    the plain version's at the served prefill shapes, qwen3-0.6b's train
+    shape, the other dense layouts and whisper-base's three attentions
+    (prefill and train shapes), f32 and bf16, with the output asked for
+    with the LSE equal bit for bit to the output without (a null LSE
+    pointer changes nothing else); then the autograd op's dq, dk, dv with
+    the kernel forward against those with the plain forward, at the train
+    shapes.  Returns the largest LSE error."""
     def rnd(shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
 
+    def arange(n):
+        return torch.arange(n, dtype=torch.int32, device="cuda")
+
     print("kernel phase: the flash kernel's lse and gradients vs plain")
-    shapes = [(arch, N_SLOTS, Hq, Hkv, D) for arch, Hq, Hkv, D
-              in FLASH_SERVED] + [(f"{TRAIN_ARCH} train", TRAIN_B, 16, 8,
-                                   128)] + [(arch, 1, Hq, Hkv, D) for
-                                            arch, Hq, Hkv, D in FLASH_DENSE]
+    S = PROMPT_LEN
+    whisper = [(label, B, S_, T, *WHISPER_HEADS, causal)
+               for B in (N_SLOTS, TRAIN_B)
+               for label, S_, T, causal in FLASH_WHISPER]
+    shapes = [(arch, N_SLOTS, S, S, Hq, Hkv, D, True) for arch, Hq, Hkv, D
+              in FLASH_SERVED] + [(f"{TRAIN_ARCH} train", TRAIN_B, S, S, 16,
+                                   8, 128, True)] + [
+        (arch, 1, S, S, Hq, Hkv, D, True) for arch, Hq, Hkv, D
+        in FLASH_DENSE] + whisper
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         short = str(dtype).replace("torch.", "")
         tol = LSE_TOL[str(dtype)]
-        for label, B, Hq, Hkv, D in shapes:
-            S = PROMPT_LEN
+        for label, B, S, T, Hq, Hkv, D, causal in shapes:
             q = rnd((B, S, Hq, D), dtype)
-            k, v = rnd((B, S, Hkv, D), dtype), rnd((B, S, Hkv, D), dtype)
-            pos = torch.arange(S, dtype=torch.int32, device="cuda")
+            k, v = rnd((B, T, Hkv, D), dtype), rnd((B, T, Hkv, D), dtype)
+            q_pos, k_pos = arange(S), arange(T)
             before = fa.launches
-            out, lse = fa.flash_attention_fwd(q, k, v, pos, pos,
-                                              return_lse=True)
-            bare = fa.flash_attention_fwd(q, k, v, pos, pos)
+            out, lse = fa.flash_attention_fwd(q, k, v, q_pos, k_pos,
+                                              causal=causal, return_lse=True)
+            bare = fa.flash_attention_fwd(q, k, v, q_pos, k_pos,
+                                          causal=causal)
             check(fa.launches == before + 2, "flash did not launch twice")
-            _, want = fa.flash_attention_fwd(q, k, v, pos, pos, impl="ref",
+            _, want = fa.flash_attention_fwd(q, k, v, q_pos, k_pos,
+                                             causal=causal, impl="ref",
                                              return_lse=True)
             check(lse.shape == (B, Hq, S) and lse.dtype == torch.float32,
                   f"lse is {tuple(lse.shape)} {lse.dtype}")
             err = (lse - want).abs().max().item()
             ok = torch.allclose(lse, want, atol=tol, rtol=tol)
             same = torch.equal(out, bare)
-            print(f"  lse {label} B{B} S=T={S} Hq{Hq} Hkv{Hkv} D{D} {short}"
-                  f": max_abs_err={err:.3e} atol=rtol={tol:g} (max |lse| "
+            print(f"  lse {label} B{B} S{S} T{T} Hq{Hq} Hkv{Hkv} D{D} "
+                  f"causal={causal} {short}: max_abs_err={err:.3e} "
+                  f"atol=rtol={tol:g} (max |lse| "
                   f"{want.abs().max().item():.3f}); output with lse equal "
                   f"to output without: {same} {'ok' if ok and same else 'FAIL'}")
             check(ok, f"flash lse disagrees with plain: {label} {short}")
             check(same, f"asking for the lse changed the output: {label}")
             worst = max(worst, err)
 
-        pos = torch.arange(TRAIN_S, dtype=torch.int32, device="cuda")
         tol = GRAD_TOL[str(dtype)]
-        for label, B, Hq, Hkv, D in [(f"{TRAIN_ARCH}'s train shape", TRAIN_B,
-                                      16, 8, 128)] + [
-                (arch, 1, Hq, Hkv, D) for arch, Hq, Hkv, D in FLASH_DENSE]:
-            q = rnd((B, TRAIN_S, Hq, D), dtype)
-            k, v = (rnd((B, TRAIN_S, Hkv, D), dtype) for _ in range(2))
-            dout = rnd((B, TRAIN_S, Hq, D), dtype)
+        for label, B, S, T, Hq, Hkv, D, causal in [
+                (f"{TRAIN_ARCH}'s train shape", TRAIN_B, TRAIN_S, TRAIN_S, 16,
+                 8, 128, True)] + [
+                (arch, 1, TRAIN_S, TRAIN_S, Hq, Hkv, D, True)
+                for arch, Hq, Hkv, D in FLASH_DENSE] + [
+                w for w in whisper if w[1] == TRAIN_B]:
+            q = rnd((B, S, Hq, D), dtype)
+            k, v = (rnd((B, T, Hkv, D), dtype) for _ in range(2))
+            dout = rnd((B, S, Hq, D), dtype)
             grads = {}
             for impl in ("auto", "ref"):
                 leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-                out = fa.flash_attention_fwd(*leaves, pos, pos, impl=impl)
+                out = fa.flash_attention_fwd(*leaves, arange(S), arange(T),
+                                             causal=causal, impl=impl)
                 grads[impl] = torch.autograd.grad(out, leaves, dout)
             for name, got, want in zip(("dq", "dk", "dv"), grads["auto"],
                                        grads["ref"]):
                 err = (got.float() - want.float()).abs().max().item()
                 scale = want.float().abs().max().item()
                 ok = err <= tol * scale
-                print(f"  autograd {name} at {label} B{B} S{TRAIN_S} Hq{Hq} "
-                      f"Hkv{Hkv} D{D} {short}, kernel vs plain forward: "
-                      f"max_abs_err={err:.3e} (normalised {err / scale:.2e}, "
-                      f"tol {tol:g}) {'ok' if ok else 'FAIL'}")
+                print(f"  autograd {name} at {label} B{B} S{S} T{T} Hq{Hq} "
+                      f"Hkv{Hkv} D{D} causal={causal} {short}, kernel vs "
+                      f"plain forward: max_abs_err={err:.3e} (normalised "
+                      f"{err / scale:.2e}, tol {tol:g}) "
+                      f"{'ok' if ok else 'FAIL'}")
                 check(ok, f"flash autograd {name} disagrees: {label} {short}")
     return worst
 
 
-def flash_timing_phase(torch, fa, arch, inputs):
-    """The kernel, the plain version and SDPA at one served prefill shape,
-    beside the bound.  Times are device time (``device_ms``, mean of 20
-    calls); the CUDA-event times of back-to-back calls (median of 5, host
-    launch included) are printed and kept beside them: a call's host work
-    takes longer than the kernel at these shapes, so events measure the
-    host."""
+def flash_timing_phase(torch, fa, arch, inputs, causal=True):
+    """The kernel, the plain version and SDPA at one prefill shape (causal
+    or not), beside the bound.  Times are device time (``device_ms``, mean
+    of 20 calls; the kernel's and SDPA's the median of TIMING_RUNS such
+    means, each printed, with the names of the kernels SDPA ran, so that a
+    run that differs from the others shows, and which backend it took);
+    the CUDA-event times of back-to-back calls (median of 5, host launch
+    included) are printed and kept beside them: a call's host work takes
+    longer than the kernel at these shapes, so events measure the host."""
     q, k, v, q_pos, k_pos = inputs
     B, S, Hq, D = q.shape
     T = k.shape[1]
@@ -508,22 +606,26 @@ def flash_timing_phase(torch, fa, arch, inputs):
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
     def kernel():
-        return fa.flash_attention_fwd(q, k, v, q_pos, k_pos)
+        return fa.flash_attention_fwd(q, k, v, q_pos, k_pos, causal=causal)
 
     def library():
-        return sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+        return sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
 
-    ms = device_ms(torch, kernel)
+    runs = [device_ms(torch, kernel) for _ in range(TIMING_RUNS)]
+    library_runs = [device_ms(torch, library) for _ in range(TIMING_RUNS)]
+    ms, library_ms = statistics.median(runs), statistics.median(library_runs)
     event_ms = time_ms(torch, kernel)
     plain_ms = device_ms(torch, lambda: fa.flash_attention_fwd(
-        q, k, v, q_pos, k_pos, impl="ref"), 5)
-    library_ms = device_ms(torch, library)
+        q, k, v, q_pos, k_pos, causal=causal, impl="ref"), 5)
     library_event_ms = time_ms(torch, library)
+    library_kernels = kernel_names(torch, library)
 
     # bound: the pairs this run's positions leave visible, each costing a
     # QK^T and a PV product (2 FLOP per multiply-add); each input byte
     # read once and the output written once
-    visible = (k_pos[None, :] <= q_pos[:, None]) & (k_pos >= 0)[None, :]
+    visible = (k_pos >= 0)[None, :].expand(S, T)
+    if causal:
+        visible = visible & (k_pos[None, :] <= q_pos[:, None])
     flops = 4 * B * Hq * int(visible.sum().item()) * D
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
         + 4 * (S + T)
@@ -531,17 +633,22 @@ def flash_timing_phase(torch, fa, arch, inputs):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     bound_ms = max(t_ops, t_bytes)
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    print(f"flash timing at {arch}'s prefill shape B{B} S=T={S} Hq{Hq} "
-          f"Hkv{k.shape[2]} D{D} {q.dtype} causal (device time, mean of 20 "
-          "calls):")
+    print(f"flash timing at {arch}'s prefill shape B{B} S{S} T{T} Hq{Hq} "
+          f"Hkv{k.shape[2]} D{D} {q.dtype} causal={causal} (device time, "
+          "mean of 20 calls):")
     print(f"  flash kernel {ms:.4f} ms (events, launch included: "
           f"{event_ms:.4f} ms) | plain {plain_ms:.4f} ms | sdpa (yardstick) "
           f"{library_ms:.4f} ms (events {library_event_ms:.4f} ms) | bound "
           f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, "
           f"{nbytes / 1e6:.2f} MB)")
+    print(f"  runs: flash {[round(t, 4) for t in runs]} ms, sdpa "
+          f"{[round(t, 4) for t in library_runs]} ms; sdpa ran "
+          f"{library_kernels}")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "event_ms": event_ms,
-            "library_event_ms": library_event_ms}
+            "library_event_ms": library_event_ms, "runs_ms": runs,
+            "library_runs_ms": library_runs,
+            "library_kernels": library_kernels}
 
 
 def gmm_kernel_phase(torch, gm, gen):
@@ -1119,6 +1226,122 @@ def serve_phase(torch, np, kernels, arch, expect):
     return launches
 
 
+def frontend_phase(torch, np, kernels, arch, expect):
+    """Prefill and decode ``arch`` (an encoder-decoder or a frontend arch)
+    at full width and depth, random weights from seed 0, through
+    ``make_prefill`` and ``make_decode_step``: one warm-up prefill, then
+    with the launch counts at 0 one prefill (flash once an attention: each
+    encoder layer's, each decoder layer's self- and cross-attention), and
+    with them at 0 again GEN_LEN greedy decode steps (no flash: decode
+    attention is plain); the prefill logits against the plain versions'
+    (``impl="ref"``) within LOGIT_RTOL, and both against the same prefill
+    in f32 on the plain versions; finite decode logits; then a profile of
+    one prefill and a few decode steps.  Returns the launches of the
+    prefill and of the decode steps, by kernel, and the figures."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer, init_params
+    from repro_torch.steps import make_decode_step, make_prefill
+
+    cfg = get_config(arch)
+    check({k: getattr(cfg, k) for k in expect} == expect
+          and cfg.dtype == "bfloat16", f"unexpected {arch} config {cfg}")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    n_params = sum(p.numel() for p in params.parameters())
+    rng = np.random.default_rng(0)
+    B = N_SLOTS
+    n_patches = cfg.n_patches if cfg.frontend == "vision_stub" else 0
+
+    def stub(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to("cuda")
+
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (B, PROMPT_LEN - n_patches)).astype(
+            np.int32)).to("cuda")}
+    if n_patches:
+        batch["patches"] = stub(B, n_patches, cfg.frontend_dim)
+    if cfg.frontend == "audio_stub":
+        batch["frames"] = stub(B, PROMPT_LEN // cfg.enc_seq_divisor,
+                               cfg.frontend_dim)
+    shapes = {k: tuple(v.shape) for k, v in batch.items()}
+    print(f"frontend phase: {cfg.name} {n_params / 1e6:.1f}M params, "
+          f"prefill of {shapes}, {GEN_LEN} decode steps")
+    max_len = PROMPT_LEN + GEN_LEN
+    run_prefill = make_prefill(cfg, max_len)
+    run_decode = make_decode_step(cfg)
+    run_prefill(params, batch)                            # warm
+
+    def counted(work):
+        for mod in kernels.values():         # count the main path alone
+            mod.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = work()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+        return out, wall_ms, {name: mod.launches
+                              for name, mod in kernels.items()}
+
+    (logits, cache), prefill_ms, prefill_launches = counted(
+        lambda: run_prefill(params, batch))
+    first = logits.clone()
+
+    def decode_steps():
+        nonlocal logits, cache
+        all_logits = []
+        for _ in range(GEN_LEN):
+            tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+            logits, cache = run_decode(params, cache, tok)
+            all_logits.append(logits)
+        return torch.cat(all_logits, dim=1)
+
+    decoded, decode_ms, decode_launches = counted(decode_steps)
+    want = dict.fromkeys(kernels, 0)
+    want["flash"] = attention_blocks(cfg)
+    print(f"  prefill launches {prefill_launches} (want {want}); "
+          f"{GEN_LEN} decode steps' launches {decode_launches}; cache pos "
+          f"{cache['pos']}")
+    check(prefill_launches == want, f"{arch}: prefill launches "
+          f"{prefill_launches} != {want}")
+    check(not any(decode_launches.values()),
+          f"{arch}: decode launched {decode_launches}")
+    check(cache["pos"] == PROMPT_LEN + GEN_LEN,
+          f"{arch}: cache pos {cache['pos']}")
+    check(tuple(decoded.shape) == (B, GEN_LEN, cfg.vocab_padded)
+          and bool(torch.isfinite(decoded.float()).all()),
+          f"{arch}: decode logits not finite or misshapen")
+
+    with torch.no_grad():
+        ref, _ = make_prefill(cfg, max_len, impl="ref")(params, batch)
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        params32 = Transformer(cfg32, "cuda")
+        params32.load_state_dict(params.state_dict())
+        f32_logits, _ = make_prefill(cfg32, max_len, impl="ref")(params32,
+                                                                 batch)
+        del params32
+    got, ref = first.float(), ref.float()
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    agree = int((got.argmax(-1) == ref.argmax(-1)).sum().item())
+    print(f"  prefill logits, kernels vs plain versions: max_abs_err="
+          f"{err:.4e} tol={LOGIT_RTOL * scale:.4e} (max |logit| "
+          f"{scale:.3f}); greedy tokens agree {agree}/{B}")
+    print(f"  against the same prefill in f32 on the plain versions: plain "
+          f"bf16 max_abs_err={(ref - f32_logits).abs().max().item():.4e}, "
+          f"kernels bf16 {(got - f32_logits).abs().max().item():.4e}")
+    check(err <= LOGIT_RTOL * scale, f"{arch}: prefill logits disagree")
+    print(f"  prefill {prefill_ms:.3f} ms; decode {decode_ms / GEN_LEN:.3f} "
+          f"ms a step (host clock, greedy pick included)")
+    profile_phase(torch, lambda: run_prefill(params, batch),
+                  lambda c, t: run_decode(params, c, t))
+    figures = {"params": n_params, "prefill_ms": prefill_ms,
+               "decode_ms_a_step": decode_ms / GEN_LEN,
+               "prefill_logit_err": err, "prefill_logit_tol":
+               LOGIT_RTOL * scale}
+    return prefill_launches, decode_launches, figures
+
+
 def loss_and_grads(torch, cfg, model, batch, impl):
     """One train forward and backward: (loss, {parameter name: grad})."""
     from repro_torch.models import forward_train
@@ -1317,12 +1540,15 @@ def train_phase(torch, fa):
 
 
 def attention_blocks(cfg) -> int:
-    """Attention blocks of one forward pass: every layer of an attention
-    kind, plus the shared block's uses; none in an attention-free
-    stack."""
+    """Prompt attentions of one forward pass: every layer of an attention
+    kind, plus the shared block's uses, plus an encoder-decoder's
+    cross-attention in every decoder layer and its encoder's layers; none
+    in an attention-free stack."""
     n = cfg.n_layers if cfg.block_pattern[0] in ("attn", "moe") else 0
     if cfg.shared_attn_every:
         n += cfg.n_layers // cfg.shared_attn_every
+    if cfg.is_encdec:
+        n += cfg.n_layers + cfg.n_enc_layers
     return n
 
 
@@ -1340,13 +1566,14 @@ def train_launches(cfg, steps: int) -> dict:
 
 
 def kind_train_phase(torch, kernels, arch, n_layers):
-    """Train ``arch`` (MoE, Mamba2 or RWKV6) at full width, with
-    ``n_layers`` layers (None: its depth), through the port's step
-    builder, as ``train_phase`` trains TRAIN_ARCH: one step's loss and
-    gradients with the kernels against the plain versions (bf16 at the
-    phase's depth, then f32 at TRAIN_F32_LAYERS layers; for rwkv6 the
-    bf16 gradients equal, since its wkv kernel gives the plain version's
-    y; zamba2 in f32 at 6 layers, so that its shared block runs), then
+    """Train ``arch`` (MoE, Mamba2, RWKV6, the encoder-decoder or the
+    vision frontend) at full width, with ``n_layers`` layers (None: its
+    depth), through the port's step builder, as ``train_phase`` trains
+    TRAIN_ARCH: one step's loss and gradients with the kernels against the
+    plain versions (bf16 at the phase's depth, then f32 at
+    TRAIN_F32_LAYERS layers; for rwkv6 the bf16 gradients equal, since its
+    wkv kernel gives the plain version's y; zamba2 in f32 at 6 layers, so
+    that its shared block runs; whisper in f32 at its full depth), then
     TRAIN_STEPS timed steps of ``make_train_step`` with every
     kernel's launches counted, wall and peak memory, one more step under
     torch.profiler, and the plain backward of the kind's autograd op
@@ -1356,6 +1583,8 @@ def kind_train_phase(torch, kernels, arch, n_layers):
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticTokens
     from repro_torch.kernels._replay import replay_grads
+    from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.ref import flash_bwd_ref
     from repro_torch.kernels.mamba2_ssd.ref import ssd_ref
     from repro_torch.kernels.moe_gmm.ops import gmm_bwd_ref
     from repro_torch.kernels.rwkv6_wkv.ref import wkv_ref
@@ -1364,7 +1593,7 @@ def kind_train_phase(torch, kernels, arch, n_layers):
     from repro_torch.steps import init_train_state, make_train_step
 
     full = get_config(arch)
-    expect = dict(SERVED)[arch]
+    expect = dict(SERVED + FRONTEND)[arch]
     check({k: getattr(full, k) for k in expect} == expect
           and full.dtype == "bfloat16", f"unexpected {arch} config")
     cfg = full if n_layers is None else dataclasses.replace(
@@ -1411,8 +1640,9 @@ def kind_train_phase(torch, kernels, arch, n_layers):
               f"{arch}: the kernels' bf16 gradients differ from the plain "
               "versions'")
 
-    # zamba2: enough layers that the shared block runs once
-    n32 = max(TRAIN_F32_LAYERS, cfg.shared_attn_every)
+    # zamba2: enough layers that the shared block runs once; whisper: all
+    n32 = (cfg.n_layers if cfg.is_encdec
+           else max(TRAIN_F32_LAYERS, cfg.shared_attn_every))
     cfg32 = dataclasses.replace(cfg, n_layers=n32, dtype="float32")
     model32 = init_params(cfg32, torch.Generator(device="cuda").manual_seed(1),
                           "cuda").requires_grad_(True)
@@ -1486,7 +1716,35 @@ def kind_train_phase(torch, kernels, arch, n_layers):
         return (torch.randn(shape, device="cuda") * scale).to(dtype)
 
     B, S = TRAIN_B, TRAIN_S
-    if kind == "moe":
+    if kind == "attn":
+        # a layer's attentions: the decoder's self-attention and, for an
+        # encoder-decoder (as many encoder layers as decoder layers), the
+        # encoder's and the cross-attention; each from the kernel's
+        # forward and lse
+        Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        calls = [(S, S, True)]
+        if cfg.is_encdec:
+            check(cfg.n_enc_layers == cfg.n_layers,
+                  f"{arch}: a layer's attentions assume as many encoder "
+                  "as decoder layers")
+            T = S // cfg.enc_seq_divisor
+            calls += [(T, T, False), (S, T, False)]
+        saved = []
+        for Sq, Tk, causal in calls:
+            q = rnd((B, Sq, Hq, D))
+            k, v = rnd((B, Tk, Hkv, D)), rnd((B, Tk, Hkv, D))
+            qp, kp = (torch.arange(n, dtype=torch.int32, device="cuda")
+                      for n in (Sq, Tk))
+            out, lse = flash_attention_fwd(q, k, v, qp, kp, causal=causal,
+                                           return_lse=True)
+            saved.append((q, k, v, qp, kp, out, lse, causal))
+
+        def backward():
+            for q, k, v, qp, kp, out, lse, causal in saved:
+                flash_bwd_ref(q, k, v, qp, kp, out, lse, out, 0, causal)
+        op, what = "flash", (f"(B{B}, (S, T, causal) {calls}, Hq{Hq}, "
+                             f"Hkv{Hkv}, D{D})")
+    elif kind == "moe":
         E, D, F = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
         C = _capacity(S, E, cfg.n_experts_active, cfg.moe_capacity_factor)
         x, h = rnd((B, E, C, D)), rnd((B, E, C, F))
@@ -1640,6 +1898,45 @@ def train_launcher_phase(torch):
         check(ok, "the resumed run's losses differ from the straight run's")
 
 
+def frontend_launcher_phase(torch):
+    """``repro_torch.launch.train.main`` on the card for LAUNCH_STEPS steps
+    on each frontend arch's smoke config, B TRAIN_B x S TRAIN_S: the
+    prefetch pipeline's f32 frames and patches feed the bf16 models; the
+    losses are finite and the final checkpoint holds the encoder's layers
+    or the frontend's projection at the config's shape."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import train as launcher
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    for arch, _ in FRONTEND:
+        cfg = get_smoke_config(arch)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            args = ["--arch", arch, "--smoke", "--device", "cuda", "--batch",
+                    str(TRAIN_B), "--seq", str(TRAIN_S), "--steps",
+                    str(LAUNCH_STEPS), "--ckpt-every", str(LAUNCH_STEPS + 1),
+                    "--ckpt-dir", tmp]
+            print(f"train launcher phase: {' '.join(args)}")
+            t = time.perf_counter()
+            losses = launcher.main(args)
+            wall_s = time.perf_counter() - t
+            _, state, extra = CheckpointManager(tmp).restore()
+        params = state["params"]
+        print(f"  losses {losses}; {wall_s:.1f} s with its checkpoint at "
+              f"step {extra['next_batch']}")
+        check(len(losses) == LAUNCH_STEPS
+              and all(map(math.isfinite, losses))
+              and extra["next_batch"] == LAUNCH_STEPS
+              and params["frontend_proj"].shape == (cfg.frontend_dim,
+                                                    cfg.d_model)
+              and ("enc_layers" in params) == cfg.is_encdec,
+              f"{arch}: the smoke launcher run went wrong")
+        del state, params
+        free_model(torch)
+
+
 def free_model(torch) -> None:
     """Give the last model's memory back before the next one loads."""
     gc.collect()
@@ -1744,6 +2041,9 @@ def main() -> int:
     torch.cuda.synchronize()
     flash_times = {arch: flash_timing_phase(torch, fa, arch, inputs[arch])
                    for arch in FLASH_TIMED}
+    for label in FLASH_TIMED_WHISPER:
+        flash_times[label] = flash_timing_phase(torch, fa, label,
+                                                inputs[label], causal=False)
     del inputs
     gmm_err = gmm_kernel_phase(torch, gm, gen)
     gmm_times = gmm_timing_phase(torch, gm, gen)
@@ -1761,25 +2061,44 @@ def main() -> int:
     free_model(torch)
     print(f"launches over the {len(SERVED)} serve runs: {launches}")
     serve_launches = dict(launches)
+    prefill_by_path, decode_by_path = (dict.fromkeys(kernels, 0)
+                                       for _ in range(2))
+    frontend = {}
+    for arch, expect in FRONTEND:
+        pre, dec, frontend[arch] = frontend_phase(torch, np, kernels, arch,
+                                                  expect)
+        for kernel in kernels:
+            prefill_by_path[kernel] += pre[kernel]
+            decode_by_path[kernel] += dec[kernel]
+        free_model(torch)
     flash_train, train = train_phase(torch, fa)
     train_by_path = dict.fromkeys(kernels, 0)
     train_by_path["flash"] = flash_train
+    frontend_train_by_path = dict.fromkeys(kernels, 0)
     kind_train = {}
-    for arch, n_layers in KIND_TRAIN:
+    for arch, n_layers in KIND_TRAIN + FRONTEND_TRAIN:
         free_model(torch)
         got, kind_train[arch] = kind_train_phase(torch, kernels, arch,
                                                  n_layers)
+        into = (frontend_train_by_path if (arch, n_layers) in FRONTEND_TRAIN
+                else train_by_path)
         for kernel, n in got.items():
-            train_by_path[kernel] += n
+            into[kernel] += n
     free_model(torch)
     train_launcher_phase(torch)
-    for kernel, n in train_by_path.items():
-        launches[kernel] += n
+    frontend_launcher_phase(torch)
     by_path = {kernel: {"serve": serve_launches[kernel],
-                        "train": train_by_path[kernel]}
+                        "train": train_by_path[kernel],
+                        "frontend_prefill": prefill_by_path[kernel],
+                        "frontend_decode": decode_by_path[kernel],
+                        "frontend_train": frontend_train_by_path[kernel]}
                for kernel in kernels}
+    for kernel, paths in by_path.items():
+        launches[kernel] = sum(paths.values())
     print(f"launches by path (serve runs; the timed train steps of "
-          f"{TRAIN_ARCH} and of {', '.join(a for a, _ in KIND_TRAIN)}): "
+          f"{TRAIN_ARCH} and of {', '.join(a for a, _ in KIND_TRAIN)}; the "
+          f"prefill and decode steps of "
+          f"{', '.join(a for a, _ in FRONTEND)}; their timed train steps): "
           f"{by_path}")
 
     print(card_line())
@@ -1793,12 +2112,20 @@ def main() -> int:
         "max_abs_err": flash_err,
         "lse_max_abs_err": lse_err,
         **flash_times["qwen3-0.6b"],
-        # the same figures at every served head dim (granite 64, zamba2 80)
+        # the same figures at every served head dim (granite 64, zamba2
+        # 80) and at whisper-base's two non-causal shapes (head dim 64)
         "by_shape": [{"arch": arch, "head_dim": d, **flash_times[arch]}
-                     for arch, d in FLASH_TIMED.items()],
+                     for arch, d in FLASH_TIMED.items()] + [
+            {"arch": label, "head_dim": WHISPER_HEADS[2], "causal": False,
+             **flash_times[label]} for label in FLASH_TIMED_WHISPER],
         # the train step (host clock, profiler busy, flash ms a step) with
         # the kernels and with plain attention; the plain backward a step
         "train": train,
+        # whisper-base's and internvl2-2b's prefill and decode, and their
+        # train steps with the plain flash backward a step
+        "frontend": frontend,
+        "frontend_train": {arch: kind_train[arch]
+                           for arch, _ in FRONTEND_TRAIN},
     }, {
         "name": "moe_gmm",
         "route": "cuda",

@@ -3,9 +3,9 @@
 
 Fields and defaults are copied field for field, so a configuration file
 reads the same in both packages; only the derived values the port uses
-(``head_dim``, ``vocab_padded``, ``d_inner``, ``ssm_heads``,
-``rwkv_heads``) are carried over.  The runtime, mesh and hardware configs
-belong to later slices.
+(``head_dim``, ``vocab_padded``, ``is_encdec``, ``d_inner``,
+``ssm_heads``, ``rwkv_heads``) are carried over.  The runtime, mesh and
+hardware configs belong to later slices.
 """
 
 from __future__ import annotations
@@ -77,6 +77,10 @@ class ModelConfig:
     def vocab_padded(self) -> int:
         """Vocab padded to a multiple of 128 (lane width x model shards)."""
         return pad_to(self.vocab_size, 128)
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.n_enc_layers > 0
 
     @property
     def d_inner(self) -> int:

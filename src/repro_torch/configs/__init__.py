@@ -1,9 +1,9 @@
-"""Per-architecture configs, for the archs the port runs so far: every
-decoder-only arch of the reference.
+"""Per-architecture configs: every arch of the reference, the decoders,
+whisper-base's encoder-decoder and internvl2-2b's vision frontend.
 
 ``get_config(name)`` / ``get_smoke_config(name)`` / ``ARCHS`` keep the
-reference's names.  ``ARCHS`` lists every arch of the reference; the ones
-whose model code is not ported yet raise ``NotImplementedError``.
+reference's names.  An arch of ``ARCHS`` missing from ``PORTED`` would
+raise ``NotImplementedError``; none is.
 """
 
 from importlib import import_module
@@ -33,6 +33,8 @@ PORTED: Dict[str, str] = {
     "qwen3-8b": "qwen3_8b",
     "mixtral-8x7b": "mixtral_8x7b",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "whisper-base": "whisper_base",
+    "internvl2-2b": "internvl2_2b",
 }
 
 

@@ -1,12 +1,15 @@
 """Carry the reference's weights and caches across, through numpy.
 
-The reference keeps parameters as a nested dict whose ``layers`` subtree
-is stacked on a leading layer axis; the port keeps one module per layer.
-Names map one to one: ``params["layers"]["attn"]["wq"][i]`` is
-``Transformer.layers[i].attn.wq``, ``params["layers"]["moe"]["wi_gate"][i]``
-is ``Transformer.layers[i].moe.wi_gate`` (``mamba`` and ``rwkv`` alike),
-and the unstacked
-``params["shared_attn"]["attn"]["wq"]`` is ``Transformer.shared_attn.attn.wq``.
+The reference keeps parameters as a nested dict whose ``layers`` and
+``enc_layers`` subtrees are stacked on a leading layer axis; the port keeps
+one module per layer.  Names map one to one:
+``params["layers"]["attn"]["wq"][i]`` is ``Transformer.layers[i].attn.wq``,
+``params["layers"]["moe"]["wi_gate"][i]`` is
+``Transformer.layers[i].moe.wi_gate`` (``mamba``, ``rwkv``, ``cross`` and
+``ln_cross`` alike), ``params["enc_layers"]["mlp"]["wo"][i]`` is
+``Transformer.enc_layers[i].mlp.wo``, and the unstacked
+``params["shared_attn"]["attn"]["wq"]`` is ``Transformer.shared_attn.attn.wq``
+(``enc_norm`` and ``frontend_proj`` alike).
 numpy has no bf16, so arrays arrive widened to f32 and are cast to each
 parameter's dtype on the way in: the model's dtype, and f32 for the MoE
 router, Mamba2's A_log, dt_bias and D and RWKV6's decay_w0 and bonus_u,
@@ -30,6 +33,8 @@ from .models.transformer import Transformer
 
 # cache entries kept in f32 whatever the model's dtype
 _F32_STATES = ("ssm", "wkv")
+# subtrees stacked on a leading layer axis in the reference
+_STACKED = ("layers", "enc_layers")
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -46,8 +51,8 @@ def _tree_key(name: str):
     """A parameter name -> (its key in the flattened reference tree, its
     index on the stacked layer axis or None)."""
     parts = name.split(".")
-    if parts[0] == "layers":
-        return ".".join(["layers"] + parts[2:]), int(parts[1])
+    if parts[0] in _STACKED:
+        return ".".join(parts[:1] + parts[2:]), int(parts[1])
     return name, None
 
 
@@ -80,19 +85,22 @@ def _to_tree(module: nn.Module, value: Callable[[str, torch.Tensor],
                                                 torch.Tensor]) -> Dict:
     """The reference-layout nested dict of ``value(name, param)`` for each
     parameter of ``module``, on its device: per-layer values stacked on a
-    leading layer axis under ``layers`` (copies), the others as they are
-    (the live tensors, detached)."""
+    leading layer axis under ``layers`` and ``enc_layers`` (copies), the
+    others as they are (the live tensors, detached)."""
     flat: Dict[str, list] = {}
+    stacked = set()
     for name, param in module.named_parameters():
-        key, _ = _tree_key(name)
+        key, layer = _tree_key(name)
         flat.setdefault(key, []).append(value(name, param).detach())
+        if layer is not None:
+            stacked.add(key)
     tree: Dict = {}
     for key, vals in flat.items():
         *path, leaf = key.split(".")
         node = tree
         for part in path:
             node = node.setdefault(part, {})
-        node[leaf] = torch.stack(vals) if path[:1] == ["layers"] else vals[0]
+        node[leaf] = torch.stack(vals) if key in stacked else vals[0]
     return tree
 
 
@@ -111,9 +119,9 @@ def _numpy(tree: Mapping) -> Dict:
 @torch.no_grad()
 def load_numpy_(module: nn.Module, tree: Mapping) -> nn.Module:
     """Copy a nested dict of numpy arrays into ``module``'s parameters, in
-    place.  A ``layers`` subtree is stacked on its leading axis and fills
-    ``module.layers[i]``.  Raises unless the names and shapes match
-    exactly."""
+    place.  A ``layers`` (``enc_layers``) subtree is stacked on its
+    leading axis and fills ``module.layers[i]`` (``enc_layers[i]``).
+    Raises unless the names and shapes match exactly."""
     _from_tree(module, tree, lambda name, param, arr: param.copy_(
         torch.from_numpy(np.array(arr, np.float32))))
     return module
@@ -179,8 +187,9 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig, device=None,
 def cache_from_numpy(tree: Mapping, device=None,
                      dtype: Optional[torch.dtype] = None) -> Dict:
     """The reference's cache, stacked on a leading layer (or invocation)
-    axis -> the port's ``{"pos": int, "layers": [...], "shared": [...]}``
-    of one nested dict per layer.  Tensors take ``dtype`` (default f32),
+    axis -> the port's ``{"pos": int, "layers": [...], "shared": [...],
+    "cross": [...]}`` of one nested dict per layer (``cross``: the static
+    cross-attention ``{"k", "v"}`` of an encoder-decoder).  Tensors take ``dtype`` (default f32),
     except the recurrent states (Mamba2's ``ssm``, RWKV6's ``wkv``), which
     are f32 in both packages."""
     device = resolve_device(device)
@@ -201,8 +210,9 @@ def cache_from_numpy(tree: Mapping, device=None,
         return [unstack(sub, i) for i in range(n)]
 
     cache = {"pos": int(tree["pos"]), "layers": per_layer(tree["layers"])}
-    if "shared" in tree:
-        cache["shared"] = per_layer(tree["shared"])
+    for part in ("shared", "cross"):
+        if part in tree:
+            cache[part] = per_layer(tree[part])
     return cache
 
 
@@ -216,6 +226,7 @@ def cache_to_numpy(cache: Dict) -> Dict:
                 for name, val in items[0].items()}
 
     out = {"pos": np.int32(cache["pos"]), "layers": stack(cache["layers"])}
-    if "shared" in cache:
-        out["shared"] = stack(cache["shared"])
+    for part in ("shared", "cross"):
+        if part in cache:
+            out[part] = stack(cache[part])
     return out

@@ -9,10 +9,12 @@ and at the end, and a run resumes from the newest checkpoint in
 ``--ckpt-dir`` at its ``next_batch``.  Without ``--device`` it runs on
 CUDA and raises where there is none.  The reference's mesh flags
 (``--model-parallel``, ``--production-mesh``) belong to the multi-device
-slice.  ``--arch`` takes every ported decoder: dense (qwen3-0.6b,
-qwen3-8b, deepseek-7b, internlm2-20b), MoE with GCR-MoE admission
+slice.  ``--arch`` takes all ten archs: dense (qwen3-0.6b, qwen3-8b,
+deepseek-7b, internlm2-20b), MoE with GCR-MoE admission
 (granite-moe-1b-a400m, mixtral-8x7b), Mamba2 with a shared attention
-block (zamba2-2.7b) and RWKV6 (rwkv6-7b).
+block (zamba2-2.7b), RWKV6 (rwkv6-7b), the encoder-decoder whisper-base
+(the pipeline's f32 frames feed its encoder) and internvl2-2b (the
+pipeline's f32 patches come before the tokens; ``--seq`` counts them).
 """
 
 from __future__ import annotations

@@ -1,6 +1,8 @@
 """PyTorch model code: GQA decoders with a dense MLP (``attn`` block kind)
 or a mixture of experts (``moe``), Mamba2 stacks (``mamba2``) with
-zamba2's shared attention block, and RWKV6 stacks (``rwkv6``)."""
+zamba2's shared attention block, RWKV6 stacks (``rwkv6``), whisper's
+encoder-decoder (cross-attention in every decoder block) and the audio
+and vision frontend stubs."""
 
 from .mamba2 import Mamba2, mamba2_decode_step, mamba2_forward
 from .moe import MoE, moe_mlp

@@ -1,5 +1,6 @@
 """Shared layers: the port of ``repro.models.layers`` for the dense GQA
-decoder, in train, prefill and decode modes, and its losses.
+decoder, whisper's encoder and cross-attention, in train, prefill and
+decode modes, and its losses.
 
 Conventions (as in the reference):
 * weights keep JAX's ``x @ W`` layout ``(in, out)``, so carrying the
@@ -181,50 +182,77 @@ def multihead_attention(
     qk_norm: bool = False,
     rope_theta: float = 1e4,
     window: int = 0,
+    causal: bool = True,
     decode: bool = False,           # True: attend over the cache (S small)
+    kv_src: Optional[torch.Tensor] = None,  # cross-attention source
+    is_cross: bool = False,         # cross-attention (kv from kv_src/cache)
     eps: float = 1e-5,
     impl: str = "auto",             # prompt attention: auto | ref
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Causal self-attention.  Returns (output (B,S,d_model), cache).
+    """Self- or cross-attention.  Returns (output (B,S,d_model), cache).
 
     Modes:
-      no cache - attend within the sequence (the teacher-forcing forward).
+      no cache - attend within the sequence (training, the teacher-forcing
+                 forward, the encoder).
       prefill  - cache given, decode=False: attend within the sequence,
                  write the last min(S, cache_len) tokens into the ring.
       decode   - cache given, decode=True: write the current token(s),
                  attend over the whole ring.
 
-    Prompt attention (no cache, or prefill) goes through
+    Cross-attention (``is_cross``) projects K and V from ``kv_src`` (the
+    encoder's output, (B, T_src, d_model)) and applies no RoPE; its key
+    positions are ``arange(T_src)``.  In prefill it writes that K/V into
+    the static cross cache (T_src slots); in decode it reads the cache
+    and writes nothing.  Self-attention applies RoPE to q and k at
+    ``positions``.  ``causal=False`` (the encoder, cross-attention) masks
+    only unwritten key slots.
+
+    Prompt, encoder and cross-attention (no cache, or prefill) go through
     ``flash_attention_fwd``: the Hopper kernel for every CUDA tensor, the
     plain version for a CPU tensor; with grad enabled it is the
     differentiable op, whose backward is the reference's blocked flash
     backward in plain PyTorch.  The reference takes its flash path only
     when ``S % 512 == 0 and T % 1024 == 0`` and plain attention otherwise:
     a tiling constraint of its XLA scan, not part of the model, so the
-    port takes the same op at every S.  Decode attention is plain PyTorch,
-    as it is plain XLA in the reference.
+    port takes the same op at every S and T.  Decode attention is plain
+    PyTorch, as it is plain XLA in the reference: grouped (no KV
+    repetition), masked by positions for self-attention, an unmasked
+    softmax over the cross cache for cross-attention.
     """
     B, S, _ = x.shape
     q = (x @ p.wq).reshape(B, S, n_heads, d_head)
-    k = (x @ p.wk).reshape(B, S, n_kv, d_head)
-    v = (x @ p.wv).reshape(B, S, n_kv, d_head)
-    if qk_norm:
-        q = rms_norm(q, p.q_norm, eps)
-        k = rms_norm(k, p.k_norm, eps)
-    q = apply_rope(q, positions, rope_theta)
-    k = apply_rope(k, positions, rope_theta)
-
-    if cache is not None:
-        cache = _cache_write(cache, k, v, cache_pos)
-    if decode:
-        k_pos = _cache_slot_positions(cache["k"].shape[1], cache_pos, S,
-                                      x.device)
-        out = _grouped_decode_attention(
-            q.reshape(B, S, n_kv, n_heads // n_kv, d_head), cache["k"],
-            cache["v"], positions, k_pos, window)
+    if is_cross and decode:
+        k, v = cache["k"], cache["v"]
     else:
-        out = flash_attention_fwd(q, k, v, positions, positions,
-                                  window=window, causal=True, impl=impl)
+        src = x if kv_src is None else kv_src
+        T = src.shape[1]
+        k = (src @ p.wk).reshape(B, T, n_kv, d_head)
+        v = (src @ p.wv).reshape(B, T, n_kv, d_head)
+        if qk_norm:
+            q = rms_norm(q, p.q_norm, eps)
+            k = rms_norm(k, p.k_norm, eps)
+        if not is_cross:
+            q = apply_rope(q, positions, rope_theta)
+            k = apply_rope(k, positions, rope_theta)
+        if cache is not None:
+            cache = _cache_write(cache, k, v, cache_pos)
+    if decode:
+        qg = q.reshape(B, S, n_kv, n_heads // n_kv, d_head)
+        if causal:
+            k_pos = _cache_slot_positions(cache["k"].shape[1], cache_pos, S,
+                                          x.device)
+            out = _grouped_decode_attention(qg, cache["k"], cache["v"],
+                                            positions, k_pos, window)
+        else:
+            scores = torch.einsum("bshgd,bthd->bhgst", qg, k).float() \
+                * (1.0 / math.sqrt(d_head))
+            probs = torch.softmax(scores, dim=-1).to(q.dtype)
+            out = torch.einsum("bhgst,bthd->bshgd", probs, v)
+    else:
+        k_pos = (torch.arange(k.shape[1], dtype=torch.int32,
+                              device=x.device) if is_cross else positions)
+        out = flash_attention_fwd(q, k, v, positions, k_pos, window=window,
+                                  causal=causal, impl=impl)
     return out.reshape(B, S, n_heads * d_head) @ p.wo, cache
 
 

@@ -2,8 +2,17 @@
 ``repro.models.transformer`` for four block kinds: ``attn`` (GQA with a
 dense SwiGLU MLP), ``moe`` (GQA with a mixture of experts), ``mamba2``
 (the SSD block) and ``rwkv6`` (RWKV6 time mix and channel mix), with
-zamba2's shared attention block (one parameter set, attention + dense
-MLP) applied after every ``shared_attn_every`` layers.
+three structural extensions:
+
+* zamba2: a shared attention block (one parameter set, attention + dense
+  MLP) applied after every ``shared_attn_every`` layers;
+* whisper: an encoder stack (non-causal attention + MLP blocks over the
+  frames' projection, then ``enc_norm``) and cross-attention, after the
+  self-attention of every decoder block, over the encoder's output;
+* the frontend stubs: ``batch["patches"]`` (``vision_stub``) and
+  ``batch["frames"]`` (``audio_stub``) are precomputed embeddings,
+  projected by ``frontend_proj`` and prepended to the tokens' embeddings
+  (vision) or fed to the encoder (audio).
 
 Three modes share the block code, as in the reference:
   train   : ``forward_train``, the full-sequence forward to the loss, each
@@ -18,11 +27,14 @@ the reference's pytree (``layers.<i>.attn.wq`` for the reference's
 ``params["layers"]["attn"]["wq"][i]``, ``layers.<i>.mamba.w_z`` for
 ``params["layers"]["mamba"]["w_z"][i]``, ``layers.<i>.rwkv.w_r`` for
 ``params["layers"]["rwkv"]["w_r"][i]``, ``shared_attn.attn.wq`` for
-``params["shared_attn"]["attn"]["wq"]``).  Caches are ``{"pos": int,
-"layers": [...], "shared": [...]}``: a layer holds ``{"k", "v"}`` ring
-buffers (attention kinds), ``{"ssm", "conv": {"x", "B", "C"}}`` (mamba2)
-or ``{"wkv", "tm_shift", "cm_shift"}`` (rwkv6), ``shared`` one ring
-buffer per invocation of the shared block.  They are updated in place.
+``params["shared_attn"]["attn"]["wq"]``, ``enc_layers.<i>.attn.wq`` for
+``params["enc_layers"]["attn"]["wq"][i]``).  Caches are ``{"pos": int,
+"layers": [...], "shared": [...], "cross": [...]}``: a layer holds
+``{"k", "v"}`` ring buffers (attention kinds), ``{"ssm", "conv": {"x",
+"B", "C"}}`` (mamba2) or ``{"wkv", "tm_shift", "cm_shift"}`` (rwkv6),
+``shared`` one ring buffer per invocation of the shared block, ``cross``
+one static ``{"k", "v"}`` of the encoder's length per decoder layer.
+They are updated in place.
 """
 
 from __future__ import annotations
@@ -49,22 +61,25 @@ def _torch_dtype(name: str) -> torch.dtype:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if (set(cfg.block_pattern) not in ({"attn"}, {"moe"}, {"mamba2"},
-                                       {"rwkv6"})
-            or cfg.n_enc_layers or cfg.frontend != "none"):
+    if set(cfg.block_pattern) not in ({"attn"}, {"moe"}, {"mamba2"},
+                                      {"rwkv6"}):
         raise NotImplementedError(
-            f"{cfg.name}: repro_torch runs attention decoders with a dense "
-            "or MoE MLP, Mamba2 stacks and RWKV6 stacks only so far "
-            "(encoder-decoder and frontends are later slices)")
+            f"{cfg.name}: repro_torch runs stacks of one block kind (attn, "
+            f"moe, mamba2 or rwkv6), not {cfg.block_pattern}")
+    if cfg.frontend not in ("none", "audio_stub", "vision_stub"):
+        raise NotImplementedError(f"{cfg.name}: unknown frontend "
+                                  f"{cfg.frontend!r}")
 
 
 class Block(nn.Module):
     """One layer of ``kind``: ln1 and ``mamba`` (``mamba2``); ln1, ln2
     and ``rwkv`` (``rwkv6``); or ln1, attn, ln2 and ``mlp`` (``attn``,
-    also the shared block) or ``moe`` (``moe``)."""
+    also the shared block and the encoder's layers) or ``moe`` (``moe``).
+    With ``cross`` (the decoder blocks of an encoder-decoder) also
+    ``ln_cross`` and ``cross``, an attention without QK norm."""
 
     def __init__(self, cfg: ModelConfig, kind: str, *, device,
-                 dtype) -> None:
+                 dtype, cross: bool = False) -> None:
         super().__init__()
         self.ln1 = L._param((cfg.d_model,), device, dtype)
         if kind == "rwkv6":
@@ -82,6 +97,11 @@ class Block(nn.Module):
                                 cfg.head_dim, cfg.qk_norm, device=device,
                                 dtype=dtype)
         self.ln2 = L._param((cfg.d_model,), device, dtype)
+        if cross:
+            self.ln_cross = L._param((cfg.d_model,), device, dtype)
+            self.cross = L.Attention(cfg.d_model, cfg.n_heads,
+                                     cfg.n_kv_heads, cfg.head_dim, False,
+                                     device=device, dtype=dtype)
         if kind == "moe":
             self.moe = MOE.MoE(cfg.d_model, cfg.moe_d_ff, cfg.n_experts,
                                device=device, dtype=dtype)
@@ -105,10 +125,19 @@ class Transformer(nn.Module):
         self.lm_head = L._param((cfg.d_model, cfg.vocab_padded), device,
                                 dtype)
         self.layers = nn.ModuleList(
-            Block(cfg, cfg.block_pattern[0], device=device, dtype=dtype)
+            Block(cfg, cfg.block_pattern[0], device=device, dtype=dtype,
+                  cross=cfg.is_encdec)
             for _ in range(cfg.n_layers))
         if cfg.shared_attn_every:
             self.shared_attn = Block(cfg, "attn", device=device, dtype=dtype)
+        if cfg.is_encdec:
+            self.enc_layers = nn.ModuleList(
+                Block(cfg, "attn", device=device, dtype=dtype)
+                for _ in range(cfg.n_enc_layers))
+            self.enc_norm = L._param((cfg.d_model,), device, dtype)
+        if cfg.frontend != "none":
+            self.frontend_proj = L._param((cfg.frontend_dim, cfg.d_model),
+                                          device, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -119,10 +148,11 @@ class Transformer(nn.Module):
 @torch.no_grad()
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> Transformer:
-    """The reference's shapes and laws (``init_params``, ``dense_init``,
-    ``embed_init``, ``moe_params``, ``mamba2_params``, ``rwkv6_params``,
-    norms at one; the MoE router, Mamba2's A_log, dt_bias and D and
-    RWKV6's decay_w0 and bonus_u in f32), drawn from
+    """The reference's shapes and laws (``init_params``, ``dense_init``
+    for every projection, the frontend's and the cross-attention's
+    included, ``embed_init``, ``moe_params``, ``mamba2_params``,
+    ``rwkv6_params``, norms at one; the MoE router, Mamba2's A_log,
+    dt_bias and D and RWKV6's decay_w0 and bonus_u in f32), drawn from
     ``generator``, which must live on ``device``.  torch and jax.random
     give different numbers from one seed: to compare with the reference,
     carry its weights over with ``convert.params_from_numpy``."""
@@ -133,6 +163,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     blocks = list(params.layers)
     if cfg.shared_attn_every:
         blocks.append(params.shared_attn)
+    if cfg.is_encdec:
+        blocks.extend(params.enc_layers)
+        params.enc_norm.fill_(1.0)
+    if cfg.frontend != "none":
+        L.dense_init_(params.frontend_proj, generator)
     for blk in blocks:
         blk.ln1.fill_(1.0)
         if hasattr(blk, "mamba"):
@@ -144,6 +179,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             continue
         for w in (blk.attn.wq, blk.attn.wk, blk.attn.wv, blk.attn.wo):
             L.dense_init_(w, generator)
+        if hasattr(blk, "cross"):
+            blk.ln_cross.fill_(1.0)
+            for w in (blk.cross.wq, blk.cross.wk, blk.cross.wv,
+                      blk.cross.wo):
+                L.dense_init_(w, generator)
         if hasattr(blk, "moe"):
             MOE.moe_init_(blk.moe, generator)
         else:
@@ -160,11 +200,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 
-def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None) -> Dict:
+def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None,
+               enc_len: int = 0) -> Dict:
     """Zeroed caches.  Attention: ring buffers of ``max_len`` slots, or the
     sliding window when that is shorter.  Mamba2: the f32 SSM state and the
     convolutions' last K-1 inputs in the model's dtype.  RWKV6: the f32
-    WKV state and the two (B, 1, D) shift states in the model's dtype."""
+    WKV state and the two (B, 1, D) shift states in the model's dtype.
+    Encoder-decoder: also each decoder layer's cross-attention K/V of
+    ``enc_len`` slots, which prefill fills and decode only reads."""
     _check_supported(cfg)
     device = resolve_device(device)
     dtype = _torch_dtype(cfg.dtype)
@@ -199,6 +242,10 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None) -> Dict:
     if cfg.shared_attn_every:
         cache["shared"] = [attn_cache() for _ in
                            range(cfg.n_layers // cfg.shared_attn_every)]
+    if cfg.is_encdec:
+        shape = (B, enc_len, cfg.n_kv_heads, cfg.head_dim)
+        cache["cross"] = [{"k": zeros(*shape), "v": zeros(*shape)}
+                          for _ in range(cfg.n_layers)]
     return cache
 
 
@@ -209,17 +256,29 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None) -> Dict:
 
 def _apply_attn_block(cfg: ModelConfig, p: Block, x, positions, cache,
                       cache_pos: int, *, decode: bool, impl: str = "auto",
-                      moe_offset=None):
-    """attn + mlp/moe block.  Returns (x, cache, aux); aux holds the MoE
-    metrics and is empty for a dense block."""
+                      moe_offset=None, causal: bool = True, cross_src=None,
+                      cross_cache: Optional[Dict] = None):
+    """attn (+ cross) + mlp/moe block.  Returns (x, cache, aux); aux holds
+    the MoE metrics and is empty for a dense block.  A block with
+    ``cross`` attends over ``cross_src`` (the encoder's output; prefill
+    writes its K/V into ``cross_cache``) or, in decode, over
+    ``cross_cache`` alone."""
     h = L.rms_norm(x, p.ln1, cfg.norm_eps)
     attn_out, cache = L.multihead_attention(
         p.attn, h, positions, cache, cache_pos,
         n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, d_head=cfg.head_dim,
         qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
-        window=cfg.sliding_window, decode=decode, eps=cfg.norm_eps,
-        impl=impl)
+        window=cfg.sliding_window, causal=causal, decode=decode,
+        eps=cfg.norm_eps, impl=impl)
     x = x + attn_out
+    if hasattr(p, "cross"):
+        hc = L.rms_norm(x, p.ln_cross, cfg.norm_eps)
+        cross_out, _ = L.multihead_attention(
+            p.cross, hc, positions, cross_cache, cache_pos,
+            n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, d_head=cfg.head_dim,
+            causal=False, decode=decode, kv_src=cross_src, is_cross=True,
+            eps=cfg.norm_eps, impl=impl)
+        x = x + cross_out
     h2 = L.rms_norm(x, p.ln2, cfg.norm_eps)
     if hasattr(p, "moe"):
         moe_out, aux = MOE.moe_mlp(
@@ -283,24 +342,29 @@ def _apply_rwkv_block(cfg: ModelConfig, p: Block, x,
 
 def _stack(cfg: ModelConfig, params: Transformer, x, positions,
            caches: Optional[Dict], cache_pos: int, *, decode: bool,
-           impl: str = "auto", moe_offset=None, remat: bool = False):
+           impl: str = "auto", moe_offset=None, remat: bool = False,
+           cross_src=None):
     """Run the decoder stack (the reference's layer scan, as a loop), with
     the shared block after layer i when (i + 1) % shared_attn_every == 0,
-    on shared cache i // shared_attn_every.  Returns (x, caches, aux), aux
+    on shared cache i // shared_attn_every, and layer i's cross-attention
+    over ``cross_src`` and cross cache i.  Returns (x, caches, aux), aux
     averaged over layers.  ``remat`` (training, no caches) recomputes each
     unit in the backward pass, the reference's ``jax.checkpoint(unit)``:
     a unit is one layer and, where it follows that layer, the shared
-    block."""
+    block.  ``cross_src`` goes to the checkpoint as an input of the unit,
+    so the recomputation reads it as the forward did and its gradient
+    flows back to the encoder."""
     k = cfg.shared_attn_every
     auxes = []
     for i, lp in enumerate(params.layers):
         shared = params.shared_attn if k and (i + 1) % k == 0 else None
-        lcache = scache = None
+        lcache = scache = lcross = None
         if caches is not None:
             lcache = caches["layers"][i]
             scache = caches["shared"][i // k] if shared is not None else None
+            lcross = caches["cross"][i] if cfg.is_encdec else None
         args = (cfg, lp, shared, x, positions, lcache, scache, cache_pos,
-                decode, impl, moe_offset)
+                decode, impl, moe_offset, cross_src, lcross)
         if remat:
             x, aux = checkpoint(_unit, *args, use_reentrant=False)
         else:
@@ -314,7 +378,8 @@ def _stack(cfg: ModelConfig, params: Transformer, x, positions,
 
 def _unit(cfg: ModelConfig, p: Block, shared: Optional[Block], x,
           positions, lcache: Optional[Dict], scache: Optional[Dict],
-          cache_pos: int, decode: bool, impl: str, moe_offset):
+          cache_pos: int, decode: bool, impl: str, moe_offset,
+          cross_src=None, lcross: Optional[Dict] = None):
     """One layer and, where one follows it, the shared block; the caches
     (None without) are updated in place.  Returns (x, aux), aux the MoE
     metrics (empty for the other kinds)."""
@@ -326,11 +391,54 @@ def _unit(cfg: ModelConfig, p: Block, shared: Optional[Block], x,
     else:
         x, _, aux = _apply_attn_block(cfg, p, x, positions, lcache,
                                       cache_pos, decode=decode, impl=impl,
-                                      moe_offset=moe_offset)
+                                      moe_offset=moe_offset,
+                                      cross_src=cross_src, cross_cache=lcross)
     if shared is not None:
         x, _, _ = _apply_attn_block(cfg, shared, x, positions, scache,
                                     cache_pos, decode=decode, impl=impl)
     return x, aux
+
+
+# ---------------------------------------------------------------------------
+# Encoder (whisper) and frontends
+# ---------------------------------------------------------------------------
+
+
+def _project(stub: torch.Tensor, w: torch.Tensor,
+             dtype: torch.dtype) -> torch.Tensor:
+    """A frontend stub's projection ``stub @ w``, taken in the promoted
+    dtype (as jnp promotes f32 @ bf16 to f32; torch's ``@`` refuses the
+    pair) and cast to ``dtype``, the model's."""
+    dt = torch.promote_types(stub.dtype, w.dtype)
+    return (stub.to(dt) @ w.to(dt)).to(dtype)
+
+
+def _encode(cfg: ModelConfig, params: Transformer, batch: Dict,
+            remat: bool, impl: str = "auto") -> Optional[torch.Tensor]:
+    """``batch["frames"]`` (B, T_enc, frontend_dim), precomputed embeddings
+    (the stub) -> the encoder's output (B, T_enc, d_model); None for a
+    model without an encoder.  The frames' projection,
+    the non-causal attention + MLP blocks of ``enc_layers`` with RoPE at
+    ``arange(T_enc)``, each recomputed in the backward pass under
+    ``remat``, then ``enc_norm``.  The reference's projection keeps the
+    frames' dtype, so f32 frames make a bf16 model's encoder output f32
+    and its decoder's layer scan fails; here the product is cast to the
+    model's dtype, as the reference casts the vision stub's patches."""
+    if not cfg.is_encdec:
+        return None
+    x = _project(batch["frames"], params.frontend_proj, params.embed.dtype)
+    positions = _positions(0, x.shape[1], x.device)
+    for lp in params.enc_layers:
+        args = (cfg, lp, x, positions, impl)
+        x = (checkpoint(_enc_unit, *args, use_reentrant=False) if remat
+             else _enc_unit(*args))
+    return L.rms_norm(x, params.enc_norm, cfg.norm_eps)
+
+
+def _enc_unit(cfg: ModelConfig, p: Block, x, positions, impl: str):
+    x, _, _ = _apply_attn_block(cfg, p, x, positions, None, 0, decode=False,
+                                impl=impl, causal=False)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -342,13 +450,37 @@ def _positions(start: int, n: int, device) -> torch.Tensor:
     return torch.arange(start, start + n, dtype=torch.int32, device=device)
 
 
-def forward_logits(cfg: ModelConfig, params: Transformer,
-                   tokens: torch.Tensor, impl: str = "auto") -> torch.Tensor:
-    """Full-sequence logits (B, S, V) without a cache."""
+def _embed_inputs(cfg: ModelConfig, params: Transformer, batch: Dict):
+    """Returns (the decoder's input embeddings, loss mask or None).  The
+    vision stub's patches, projected, come before the tokens; the mask is
+    zero on them."""
+    tokens = batch["tokens"]
     x = params.embed[tokens]
-    positions = _positions(0, tokens.shape[1], x.device)
+    mask = None
+    if cfg.frontend == "vision_stub":
+        patches = _project(batch["patches"], params.frontend_proj, x.dtype)
+        x = torch.cat([patches, x], dim=1)
+        B, P = patches.shape[:2]
+        mask = torch.cat([
+            torch.zeros((B, P), dtype=torch.float32, device=x.device),
+            torch.ones(tuple(tokens.shape), dtype=torch.float32,
+                       device=x.device)], dim=1)
+    return x, mask
+
+
+def forward_logits(cfg: ModelConfig, params: Transformer, batch,
+                   impl: str = "auto") -> torch.Tensor:
+    """Full-sequence logits (B, S, V) without a cache: the teacher-forcing
+    forward (the reference test's ``_full_logits``).  ``batch`` holds
+    ``tokens`` (B, S_tok) and the frontend's ``patches`` or ``frames``;
+    a tensor is taken as the tokens.  With patches, S counts them too."""
+    if isinstance(batch, torch.Tensor):
+        batch = {"tokens": batch}
+    x, _ = _embed_inputs(cfg, params, batch)
+    positions = _positions(0, x.shape[1], x.device)
+    cross_src = _encode(cfg, params, batch, False, impl)
     x, _, _ = _stack(cfg, params, x, positions, None, 0, decode=False,
-                     impl=impl)
+                     impl=impl, cross_src=cross_src)
     return L.rms_norm(x, params.final_norm, cfg.norm_eps) @ params.lm_head
 
 
@@ -356,25 +488,36 @@ def forward_train(cfg: ModelConfig, params: Transformer, batch: Dict,
                   remat: bool = True, moe_offset=None, impl: str = "auto"):
     """Full-sequence forward to the loss; returns (loss, metrics).
 
-    ``batch`` holds int ``tokens`` and ``targets`` (B, S).  Embeddings, the
+    ``batch`` holds int ``tokens`` and ``targets`` (B, S), and the
+    frontend's stub: ``patches`` (B, n_patches, frontend_dim) for the
+    vision stub, ``frames`` (B, T_enc, frontend_dim) for the audio stub,
+    in any float dtype (each projected in the promoted dtype, then cast to
+    the model's).  Embeddings (patches first), the encoder (whisper), the
     stack (each layer, with the shared block that follows it, under
-    ``torch.utils.checkpoint`` when ``remat``), the final norm, then
-    ``chunked_softmax_xent`` over the LM head, plus 0.01 times each
-    ``*_loss`` aux of the stack (the MoE's load-balance and z losses,
-    averaged over layers).  Every decoder kind trains: the flash, gmm, ssd
-    and wkv kernels run their forwards inside autograd ops whose
-    backwards are plain PyTorch.  ``moe_offset`` rotates the MoE's
-    admission order (GCR-MoE).  ``impl="ref"`` sends every kernel to its
-    plain version on the card.  Encoder-decoder and frontend configs
-    raise ``NotImplementedError``."""
+    ``torch.utils.checkpoint`` when ``remat``; the encoder's layers too),
+    the final norm, then ``chunked_softmax_xent`` over the LM head with
+    the patches' positions masked out (their targets padded with zeros),
+    plus 0.01 times each ``*_loss`` aux of the stack (the MoE's
+    load-balance and z losses, averaged over layers).  Every kind trains:
+    the flash, gmm, ssd and wkv kernels run their forwards inside autograd
+    ops whose backwards are plain PyTorch.  ``moe_offset`` rotates the
+    MoE's admission order (GCR-MoE).  ``impl="ref"`` sends every kernel
+    to its plain version on the card."""
     _check_supported(cfg)
-    tokens = batch["tokens"]
-    x = params.embed[tokens]
-    positions = _positions(0, tokens.shape[1], x.device)
+    x, mask = _embed_inputs(cfg, params, batch)
+    positions = _positions(0, x.shape[1], x.device)
+    cross_src = _encode(cfg, params, batch, remat, impl)
     x, _, aux = _stack(cfg, params, x, positions, None, 0, decode=False,
-                       impl=impl, moe_offset=moe_offset, remat=remat)
+                       impl=impl, moe_offset=moe_offset, remat=remat,
+                       cross_src=cross_src)
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
-    loss = L.chunked_softmax_xent(x, params.lm_head, batch["targets"], None)
+    targets = batch["targets"]
+    if cfg.frontend == "vision_stub":
+        # the patches' positions carry no targets
+        pad = torch.zeros((targets.shape[0], x.shape[1] - targets.shape[1]),
+                          dtype=targets.dtype, device=targets.device)
+        targets = torch.cat([pad, targets], dim=1)
+    loss = L.chunked_softmax_xent(x, params.lm_head, targets, mask)
     for key, val in aux.items():
         if key.endswith("_loss"):
             loss = loss + 0.01 * val
@@ -383,17 +526,21 @@ def forward_train(cfg: ModelConfig, params: Transformer, batch: Dict,
 
 def prefill(cfg: ModelConfig, params: Transformer, batch: Dict,
             max_len: int, impl: str = "auto"):
-    """Process the prompt ``batch["tokens"]`` (B, S); returns (last-token
-    logits (B, 1, V), populated cache).  ``impl="ref"`` sends prompt
-    attention, the expert products, the SSD scan and the WKV to their
-    plain versions even on the card (for comparing)."""
-    tokens = batch["tokens"]
-    x = params.embed[tokens]
-    B, S = tokens.shape
+    """Process the prompt ``batch["tokens"]`` (B, S_tok), after the vision
+    stub's ``patches`` or with the audio stub's ``frames`` encoded; returns
+    (last-token logits (B, 1, V), populated cache).  The cache's ``pos``
+    counts the patches too; the cross caches hold the encoder's length.
+    ``impl="ref"`` sends prompt, encoder and cross-attention, the expert
+    products, the SSD scan and the WKV to their plain versions even on
+    the card (for comparing)."""
+    x, _ = _embed_inputs(cfg, params, batch)
+    B, S = x.shape[:2]
     positions = _positions(0, S, x.device)
-    caches = init_cache(cfg, B, max_len, x.device)
+    cross_src = _encode(cfg, params, batch, False, impl)
+    enc_len = 0 if cross_src is None else cross_src.shape[1]
+    caches = init_cache(cfg, B, max_len, x.device, enc_len)
     x, caches, _ = _stack(cfg, params, x, positions, caches, 0,
-                          decode=False, impl=impl)
+                          decode=False, impl=impl, cross_src=cross_src)
     caches["pos"] = S
     x = L.rms_norm(x[:, -1:], params.final_norm, cfg.norm_eps)
     return x @ params.lm_head, caches
@@ -402,7 +549,8 @@ def prefill(cfg: ModelConfig, params: Transformer, batch: Dict,
 def decode_step(cfg: ModelConfig, params: Transformer, caches: Dict,
                 tokens: torch.Tensor):
     """One serving step: tokens (B, 1) -> (logits (B, 1, V), caches).  The
-    caches are updated in place and returned."""
+    caches are updated in place and returned; cross-attention reads the
+    cross caches prefill wrote."""
     x = params.embed[tokens]
     pos = caches["pos"]
     positions = _positions(pos, tokens.shape[1], x.device)

@@ -52,6 +52,8 @@ def _ulp_tol(want: np.ndarray) -> float:
     ("deepseek-7b", {}),
     ("internlm2-20b", {}),
     ("qwen3-8b", {}),
+    ("whisper-base", {}),
+    ("internvl2-2b", {}),
 ])
 def test_bf16_prefill_and_decode_logits_match_jax(arch, over):
     jcfg = dataclasses.replace(jget_smoke(arch), **over)
@@ -61,14 +63,27 @@ def test_bf16_prefill_and_decode_logits_match_jax(arch, over):
     params = params_from_numpy(
         jax.tree.map(lambda a: np.asarray(a, np.float32), jparams), cfg,
         "cpu")
-    toks = np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (2, 24 + 3)).astype(np.int32)
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab_size, (2, 24 + 3)).astype(np.int32)
     S = 24
-    jlogits, jcache = _jprefill(jcfg, jparams,
-                               {"tokens": jnp.asarray(toks[:, :S])},
-                               max_len=32)
-    logits, cache = prefill(cfg, params,
-                            {"tokens": torch.from_numpy(toks[:, :S])}, 32)
+    # the frontend's stub in bf16 in both (one rounding of the same f32)
+    stubs = {}
+    if cfg.frontend == "vision_stub":
+        stubs["patches"] = rng.standard_normal(
+            (2, cfg.n_patches, cfg.frontend_dim)).astype(np.float32)
+    if cfg.frontend == "audio_stub":
+        stubs["frames"] = rng.standard_normal(
+            (2, S // cfg.enc_seq_divisor, cfg.frontend_dim)).astype(
+                np.float32)
+    max_len = 32 + (cfg.n_patches if cfg.frontend == "vision_stub" else 0)
+    jlogits, jcache = _jprefill(
+        jcfg, jparams, {"tokens": jnp.asarray(toks[:, :S]),
+                        **{k: jnp.asarray(v, jnp.bfloat16)
+                           for k, v in stubs.items()}}, max_len=max_len)
+    logits, cache = prefill(
+        cfg, params, {"tokens": torch.from_numpy(toks[:, :S]),
+                      **{k: torch.from_numpy(v).to(torch.bfloat16)
+                         for k, v in stubs.items()}}, max_len)
     for t in range(4):
         assert logits.dtype == torch.bfloat16
         want = np.asarray(jlogits, np.float32)

@@ -214,3 +214,87 @@ def test_dense_train_layouts_lse_and_autograd(arch, Hq, Hkv, dtype):
     for got, want in zip(grads["auto"], grads["ref"]):
         err = (got.float() - want.float()).abs().max().item()
         assert err <= GRAD_TOL[dtype] * want.float().abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,T,causal", [(512, 512, False),
+                                        (1024, 512, False),
+                                        (1024, 1024, True)],
+                         ids=["encoder", "cross", "decoder"])
+def test_whisper_layouts_lse_and_autograd(S, T, causal, dtype):
+    """whisper-base's three attentions, MHA 8/8 at head dim 64, one row:
+    the encoder's self-attention (S = T = 512, non-causal), the decoder's
+    cross-attention over it (S = 1024 queries, T = 512 keys, non-causal:
+    more queries than keys) and the decoder's self-attention (S = T =
+    1024, causal).  The output, the lse and the autograd op's dq, dk, dv
+    with the kernel forward against the plain forward; every non-causal
+    row sees every key, so none is fully masked."""
+    gen = _card()
+    dt = getattr(torch, dtype)
+    H, D = 8, 64
+    q = torch.randn((1, S, H, D), generator=gen, device="cuda", dtype=dt)
+    k, v = (torch.randn((1, T, H, D), generator=gen, device="cuda",
+                        dtype=dt) for _ in range(2))
+    dout = torch.randn(q.shape, generator=gen, device="cuda", dtype=dt)
+    q_pos = torch.arange(S, dtype=torch.int32, device="cuda")
+    k_pos = torch.arange(T, dtype=torch.int32, device="cuda")
+    outs, lses, grads = {}, {}, {}
+    for impl in ("auto", "ref"):
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        before = ops.launches
+        outs[impl], lses[impl] = ops.flash_attention_fwd(
+            *leaves, q_pos, k_pos, causal=causal, impl=impl,
+            return_lse=True)
+        assert ops.launches == before + (impl == "auto")
+        grads[impl] = torch.autograd.grad(outs[impl], leaves, dout)
+    assert bool((lses["auto"] > -1e29).all())
+    torch.testing.assert_close(outs["auto"].float(), outs["ref"].float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    torch.testing.assert_close(lses["auto"], lses["ref"],
+                               atol=LSE_TOL[dtype], rtol=LSE_TOL[dtype])
+    for got, want in zip(grads["auto"], grads["ref"]):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= GRAD_TOL[dtype] * want.float().abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["whisper-base", "internvl2-2b"])
+def test_frontend_prefill_kernel_matches_plain(arch):
+    """One prefill of each arch's smoke config in f32 on the card (frames
+    or patches in the model's dtype), the kernel against ``impl="ref"``:
+    flash launches once an attention (whisper: each encoder layer's, and
+    each decoder layer's self and cross), logits and every cache within 1e-4 (the kernel's
+    summation order, carried through the layers)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params, prefill
+
+    gen = _card()
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    params = init_params(cfg, gen, "cuda")
+    B, S = 2, 64
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     generator=gen, device="cuda")}
+    if cfg.frontend == "vision_stub":
+        batch["patches"] = torch.randn((B, cfg.n_patches, cfg.frontend_dim),
+                                       generator=gen, device="cuda")
+    if cfg.frontend == "audio_stub":
+        batch["frames"] = torch.randn((B, S // 2, cfg.frontend_dim),
+                                      generator=gen, device="cuda")
+    max_len = S + cfg.n_patches + 8
+    before = ops.launches
+    got, got_cache = prefill(cfg, params, batch, max_len)
+    n = cfg.n_layers * (2 if cfg.is_encdec else 1) + cfg.n_enc_layers
+    assert ops.launches == before + n
+    want, want_cache = prefill(cfg, params, batch, max_len, impl="ref")
+    assert ops.launches == before + n
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    assert got_cache["pos"] == want_cache["pos"] == S + (
+        cfg.n_patches if cfg.frontend == "vision_stub" else 0)
+    for part in ("layers", "cross"):
+        for g, w in zip(got_cache.get(part, []), want_cache.get(part, [])):
+            for name in ("k", "v"):
+                torch.testing.assert_close(g[name], w[name], atol=1e-4,
+                                           rtol=1e-4)

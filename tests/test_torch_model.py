@@ -49,22 +49,22 @@ def _close(got, want, tol=1e-5):
 
 
 def test_configs_copied_field_for_field():
-    assert sorted(PORTED) == sorted([ARCH, "granite-moe-1b-a400m",
-                                     "mixtral-8x7b", "zamba2-2.7b",
-                                     "rwkv6-7b", "deepseek-7b",
-                                     "internlm2-20b", "qwen3-8b"])
+    """Every arch of the reference is ported (whisper-base and
+    internvl2-2b last), each config and smoke config copied field for
+    field, with the derived values the port reads."""
+    assert sorted(PORTED) == sorted(ARCHS) == sorted(
+        [ARCH, "granite-moe-1b-a400m", "mixtral-8x7b", "zamba2-2.7b",
+         "rwkv6-7b", "deepseek-7b", "internlm2-20b", "qwen3-8b",
+         "whisper-base", "internvl2-2b"])
     for arch in PORTED:
         for jcfg, cfg in ((jget_config(arch), get_config(arch)),
                           (jget_smoke(arch), get_smoke_config(arch))):
             for f in dataclasses.fields(jconfig.ModelConfig):
                 assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
-            assert (cfg.head_dim, cfg.vocab_padded, cfg.rwkv_heads) == (
-                jcfg.head_dim, jcfg.vocab_padded, jcfg.rwkv_heads)
-    others = [a for a in ARCHS if a not in PORTED]
-    assert len(others) == 2
-    for arch in others:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get_config(arch)
+            assert (cfg.head_dim, cfg.vocab_padded, cfg.rwkv_heads,
+                    cfg.is_encdec) == (jcfg.head_dim, jcfg.vocab_padded,
+                                       jcfg.rwkv_heads, jcfg.is_encdec)
+    assert [a for a in ARCHS if get_config(a).is_encdec] == ["whisper-base"]
     with pytest.raises(KeyError):
         get_smoke_config("no-such-arch")
 
@@ -210,3 +210,30 @@ def test_dense_configs_prefill_decode_match_jax(arch, window):
     errs = [np.abs(logits[:, 0].numpy() - ref[:, S - 1 + t]).max()
             for t, (logits, _, _, _) in enumerate(pairs)]
     assert max(errs) < 1e-4, errs
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_smoke_prefill_decode(arch):
+    """Port of ``tests/test_models.py::test_smoke_prefill_decode`` over all
+    ten archs, each smoke config in its own dtype, the frontend's stub in
+    it too: a prefill of 32 tokens gives (B, 1, V) logits, and a greedy
+    decode step after it finite (B, 1, V) logits."""
+    cfg = get_smoke_config(arch)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    B, S = 2, 32
+    rng = np.random.default_rng(0)
+    dtype = getattr(torch, cfg.dtype)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32))}
+    if cfg.frontend == "vision_stub":
+        batch["patches"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.n_patches, cfg.frontend_dim))).to(dtype)
+    if cfg.frontend == "audio_stub":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (B, S // cfg.enc_seq_divisor, cfg.frontend_dim))).to(dtype)
+    logits, cache = prefill(cfg, params, batch, max_len=S + 8)
+    assert tuple(logits.shape) == (B, 1, cfg.vocab_padded)
+    tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+    logits2, cache = decode_step(cfg, params, cache, tok)
+    assert tuple(logits2.shape) == (B, 1, cfg.vocab_padded)
+    assert bool(torch.isfinite(logits2.float()).all())

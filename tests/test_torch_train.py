@@ -43,7 +43,7 @@ from repro.models import transformer as jtransformer  # noqa: E402
 from repro.optim import adamw_init as jadamw_init  # noqa: E402
 from repro.optim import adamw_update as jadamw_update  # noqa: E402
 from repro.optim import cosine_schedule as jcosine_schedule  # noqa: E402
-from repro_torch.config import ModelConfig, OptimizerConfig  # noqa: E402
+from repro_torch.config import OptimizerConfig  # noqa: E402
 from repro_torch.configs import PORTED, get_smoke_config  # noqa: E402
 from repro_torch.convert import (load_numpy_,  # noqa: E402
                                  opt_state_to_numpy, params_from_numpy,
@@ -264,9 +264,20 @@ def _cfgs():
 
 
 def _batch(cfg, B, S, seed):
-    toks = np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
-    return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    """tokens and targets (B, S), and the frontend's f32 stub: patches
+    (B, n_patches, frontend_dim) before them or frames (B, S //
+    enc_seq_divisor, frontend_dim) for the encoder."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    if cfg.frontend == "vision_stub":
+        batch["patches"] = rng.standard_normal(
+            (B, cfg.n_patches, cfg.frontend_dim)).astype(np.float32)
+    if cfg.frontend == "audio_stub":
+        batch["frames"] = rng.standard_normal(
+            (B, S // cfg.enc_seq_divisor, cfg.frontend_dim)).astype(
+                np.float32)
+    return batch
 
 
 def _grads_tree(cfg, params, grads):
@@ -372,19 +383,6 @@ def test_train_step_matches_reference(microbatches):
     reference's (``_steps_match_reference``)."""
     jcfg, cfg = _cfgs()
     _steps_match_reference(jcfg, cfg, microbatches, (0, 1), seed=2)
-
-
-@pytest.mark.parametrize("arch", ["whisper-base", "internvl2-2b"])
-def test_forward_train_refuses_encoder_decoder_and_frontends(arch):
-    """The two archs whose model code is a later slice: their reference
-    configs, copied into the port's ModelConfig, raise before any
-    parameter is read."""
-    jcfg = jget_smoke(arch)
-    cfg = ModelConfig(**{f.name: getattr(jcfg, f.name)
-                         for f in dataclasses.fields(ModelConfig)})
-    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg, 1, 8, 6).items()}
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        forward_train(cfg, None, batch)
 
 
 def test_serve_steps_of_a_train_state_match_reference():
@@ -669,13 +667,17 @@ def test_train_step_rotates_the_moe_priority_origin():
 @pytest.mark.parametrize("arch", sorted(PORTED))
 def test_smoke_train_step_shapes_and_finite(arch):
     """Port of the reference's test of the same name over the ported
-    archs, in each smoke config's own dtype: a forward without remat gives
-    a finite loss, and the gradients under remat are finite, one for each
-    parameter in its shape and dtype."""
+    archs (all ten), in each smoke config's own dtype, the frontend's
+    stub in it too: a forward without remat gives a finite loss, and the
+    gradients under remat are finite, one for each parameter in its shape
+    and dtype."""
     cfg = get_smoke_config(arch)
     params = init_params(cfg, torch.Generator().manual_seed(0),
                          "cpu").requires_grad_(True)
+    dtype = getattr(torch, cfg.dtype)
     batch = {k: torch.from_numpy(v) for k, v in _batch(cfg, 2, 32, 8).items()}
+    batch = {k: v.to(dtype) if v.is_floating_point() else v
+             for k, v in batch.items()}
     loss, _ = forward_train(cfg, params, batch, remat=False)
     assert np.isfinite(loss.item())
     loss, _ = forward_train(cfg, params, batch, remat=True)
