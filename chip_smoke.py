@@ -91,7 +91,18 @@ sources (one ``nvcc`` each, started together) and then:
    after the launcher it runs ``launch/train.py`` for 2 steps on each
    frontend arch's smoke config, fed by the pipeline's f32 frames and
    patches;
-9. prints one JSON line describing every kernel of the path, then, as
+9. runs the multi-device layer (``parallel_phase``): one spawned process
+   a visible card under NCCL (rendezvous through a FileStore) on
+   ``make_host_mesh`` (model 2 where it divides the world, else 1); it
+   trains full-width qwen3-0.6b and granite-moe-1b-a400m through
+   ``make_train_step(rules=...)`` against the plain step on a copy of the
+   same weights (each step's loss and every gathered leaf within the
+   bf16 train tolerance, flash and wide gmm launches equal both ways),
+   times both ways alone (wall, device busy, idle share, kernels a step,
+   peak memory), runs ``hierarchical_grad_sync`` over qwen3's gradients
+   with and without int8, and runs the launcher twice on one dir under
+   the group (the second resumes through ``restore(shardings=)``);
+10. prints one JSON line describing every kernel of the path, then, as
    the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero.  Without CUDA, or outside a checkout, it
@@ -1785,13 +1796,17 @@ def kind_train_phase(torch, kernels, arch, n_layers):
     return launches, figures
 
 
-def profiled_ms(torch, work):
+def profiled_ms(torch, work, cpu: bool = True):
     """(device busy ms, kernels, {port kernel: ms}) of one ``work()``
-    under torch.profiler; prints the six heaviest kernels."""
+    under torch.profiler; prints the six heaviest kernels.  ``cpu=False``
+    records the device's activity alone (a step of many host ops costs
+    the profiler seconds to record)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         work()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events()
@@ -1935,6 +1950,282 @@ def frontend_launcher_phase(torch):
               f"{arch}: the smoke launcher run went wrong")
         del state, params
         free_model(torch)
+
+
+# the parallel phase: the sharded train step (make_train_step(rules=...))
+# of each PARALLEL_ARCHS arch at full width and depth, B TRAIN_B x S
+# TRAIN_S, against the plain step on a copy of the same weights, in one
+# process a visible card (NCCL over a FileStore); each step's loss and
+# every gathered leaf within TRAIN_LOSS_RTOL; then PARALLEL_TIMED steps of
+# each way timed alone
+PARALLEL_ARCHS = ("qwen3-0.6b", "granite-moe-1b-a400m")
+PARALLEL_STEPS, PARALLEL_TIMED = 2, 3
+PARALLEL_TIMEOUT_S = 600
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def parallel_train(torch, arch, mesh, kernels, wide):
+    """One arch of the parallel phase on this rank; returns its figures
+    (rank 0 prints them)."""
+    import copy
+
+    from repro_torch.config import OptimizerConfig
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_to_tree
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.parallel import ShardingRules
+    from repro_torch.parallel.sharding import _flatten
+    from repro_torch.steps import init_train_state, make_train_step
+
+    say = print if torch.distributed.get_rank() == 0 else (lambda *a: None)
+    cfg = get_config(arch)
+    rules = ShardingRules(cfg, mesh)
+    opt_cfg = OptimizerConfig(warmup_steps=1, total_steps=100)
+    src = SyntheticTokens(cfg, TRAIN_S, TRAIN_B, seed=0)
+
+    def batch_at(i):
+        return {k: torch.from_numpy(v).to("cuda")
+                for k, v in src.global_batch_at(i).items()}
+
+    def fresh():
+        return init_train_state(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+
+    def counts():
+        return {"flash": kernels["flash"].launches,
+                "gmm": kernels["gmm"].launches, "gmm_wide": wide[0]}
+
+    def zero():
+        kernels["flash"].launches = kernels["gmm"].launches = wide[0] = 0
+
+    params, opt = fresh()
+    plain_params, plain_opt = copy.deepcopy(params), copy.deepcopy(opt)
+    rules.distribute_params(params)
+    opt = rules.distribute_opt(opt, params)
+    sharded = make_train_step(cfg, opt_cfg, rules)
+    plain = make_train_step(cfg, opt_cfg)
+    want = train_launches(cfg, 1)
+    want = {"flash": want["flash"], "gmm": want["gmm"],
+            "gmm_wide": want["gmm"]}
+    out = {"sharded_launches": dict.fromkeys(want, 0), "losses": []}
+    for i in range(PARALLEL_STEPS):
+        zero()
+        params, opt, m = sharded(params, opt, batch_at(i), i)
+        torch.cuda.synchronize()
+        got = counts()
+        for key in got:
+            out["sharded_launches"][key] += got[key]
+        zero()
+        plain_params, plain_opt, pm = plain(plain_params, plain_opt,
+                                            batch_at(i), i)
+        torch.cuda.synchronize()
+        got_plain = counts()
+        pair = (float(m["loss"]), float(pm["loss"]))
+        out["losses"].append(pair)
+        say(f"  {arch} step {i}: loss sharded {pair[0]:.6f} plain "
+            f"{pair[1]:.6f} (rel {rel_diff(pair):.2e}, tol "
+            f"{TRAIN_LOSS_RTOL:g}); launches sharded {got}, plain "
+            f"{got_plain} (want {want})")
+        check(rel_diff(pair) <= TRAIN_LOSS_RTOL,
+              f"{arch}: the sharded step's loss differs")
+        check(got == want and got_plain == want,
+              f"{arch}: launches sharded {got} plain {got_plain} != {want}")
+    got_tree = _flatten(params_to_tree(params))
+    want_tree = _flatten(params_to_tree(plain_params))
+    worst = max(((_rel_l2(got_tree[k], want_tree[k]), k) for k in want_tree))
+    say(f"  {arch}: after {PARALLEL_STEPS} steps the largest relative L2 "
+        f"difference of a gathered leaf is {worst[0]:.3e} ({worst[1]}), tol "
+        f"{TRAIN_LOSS_RTOL:g}")
+    check(worst[0] <= TRAIN_LOSS_RTOL,
+          f"{arch}: a gathered leaf differs from the plain step's")
+    out["worst_leaf"] = worst
+    del got_tree, want_tree, plain_params, plain_opt
+
+    def timed(label, step_fn, state):
+        def one(i):
+            state[0], state[1], _ = step_fn(state[0], state[1], batch_at(i),
+                                            i)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for i in range(PARALLEL_TIMED):
+            t = time.perf_counter()
+            one(PARALLEL_STEPS + i)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        wall = statistics.median(walls)
+        busy, n_kernels, _ = profiled_ms(torch, lambda: one(
+            PARALLEL_STEPS + PARALLEL_TIMED), cpu=False)
+        fig = {"wall_ms": wall, "walls_ms": walls, "busy_ms": busy,
+               "idle": max(0.0, 1 - busy / wall), "kernels": n_kernels,
+               "peak_gb": peak}
+        say(f"  {arch} {label} step: wall ms {[round(w, 3) for w in walls]}"
+            f" (median {wall:.3f}), device busy {busy:.3f} ms, idle share "
+            f"{fig['idle']:.3f}, {n_kernels} kernels a step, peak memory "
+            f"{peak:.2f} GB")
+        return fig
+
+    zero()
+    out["sharded"] = timed("sharded", sharded, [params, opt])
+    got = counts()
+    for key in got:
+        out["sharded_launches"][key] += got[key]
+    del params, opt
+    out["plain"] = timed("plain", plain, list(fresh()))
+    return out
+
+
+def parallel_grad_sync(torch, mesh):
+    """hierarchical_grad_sync over qwen3-0.6b's gradient tree (one
+    backward of the plain model), with and without int8."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.compression import dequantize_int8, quantize_int8
+    from repro_torch.parallel.collectives import hierarchical_grad_sync
+    from repro_torch.steps import init_train_state
+
+    cfg = get_config("qwen3-0.6b")
+    params, _ = init_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in
+             SyntheticTokens(cfg, TRAIN_S, TRAIN_B, seed=0)
+             .global_batch_at(0).items()}
+    loss, _ = T.forward_train(cfg, params, batch)
+    named = dict(params.named_parameters())
+    grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+    del params, named, loss
+    world = torch.distributed.get_world_size()
+    out = {"leaves": len(grads), "mb": sum(g.numel() * g.element_size()
+                                           for g in grads.values()) / 1e6}
+    for compress in (False, True):
+        hierarchical_grad_sync(grads, mesh, compress=compress)    # warm
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = hierarchical_grad_sync(grads, mesh, compress=compress)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        # at one rank: g itself, and with int8 its dequantized int8 form
+        # in g's dtype (the reference's cast)
+        if compress:
+            want = {k: (dequantize_int8(*quantize_int8(g)) * world)
+                    .to(g.dtype).float() for k, g in grads.items()}
+        else:
+            want = {k: g.float() * world for k, g in grads.items()}
+        diff = max(float((res[k].float() - want[k]).abs().max())
+                   for k in grads)
+        out[f"compress={compress}"] = {"ms": ms, "max_abs_diff": diff}
+    return out
+
+
+def parallel_rank(rank: int, world: int, tmp: str) -> None:
+    """One rank of the parallel phase (a spawned process, one card)."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(SRC))
+    try:
+        from repro_torch.kernels.flash_attention import ops as fa
+        from repro_torch.kernels.moe_gmm import ops as gm
+        from repro_torch.launch import train as launcher
+        from repro_torch.launch.mesh import make_host_mesh
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        device = torch.device("cuda", rank)
+        torch.cuda.set_device(device)
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(f"{tmp}/store", world), rank=rank,
+            world_size=world, device_id=device)
+        model = 2 if world > 1 and world % 2 == 0 else 1
+        mesh = make_host_mesh(model)
+        say = print if rank == 0 else (lambda *a: None)
+        say(f"parallel phase: world size {world}, mesh "
+            f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} (NCCL)")
+        wide = [0]
+        launch = gm._launch
+
+        def counting(x, w):
+            y = launch(x, w)
+            wide[0] += gm.last_kernel == "wide"
+            return y
+        gm._launch = counting
+        kernels = {"flash": fa, "gmm": gm}
+        result = {"world": world,
+                  "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))}
+        for arch in PARALLEL_ARCHS:
+            result[arch] = parallel_train(torch, arch, mesh, kernels, wide)
+            gc.collect()
+            torch.cuda.empty_cache()
+        result["grad_sync"] = parallel_grad_sync(torch, mesh)
+        say(f"  hierarchical_grad_sync over qwen3-0.6b's "
+            f"{result['grad_sync']['leaves']} gradient leaves "
+            f"({result['grad_sync']['mb']:.1f} MB): "
+            + "; ".join(f"{k}: {v['ms']:.3f} ms, max |diff| "
+                        f"{v['max_abs_diff']:.3e}" for k, v in
+                        result["grad_sync"].items() if k.startswith("comp")))
+        check(all(v["max_abs_diff"] == 0.0 for k, v in
+                  result["grad_sync"].items() if k.startswith("comp"))
+              or world > 1, "hierarchical_grad_sync changed the gradients")
+        ckpt = f"{tmp}/launcher"
+        argv = ["--arch", TRAIN_ARCH, "--smoke", "--device", "cuda",
+                "--model-parallel", str(model), "--steps", "4",
+                "--ckpt-every", "2", "--ckpt-dir", ckpt]
+        say(f"  launcher under the group: {' '.join(argv)}, twice")
+        first = launcher.main(argv)
+        second = launcher.main(argv)
+        say(f"  first run losses {first}; second run losses {second}")
+        check(len(first) == 4 and all(map(math.isfinite, first))
+              and second == [], "the sharded launcher did not resume")
+        dist.barrier()
+        if rank == 0:
+            Path(f"{tmp}/result.json").write_text(json.dumps(result))
+        dist.destroy_process_group()
+    except BaseException:
+        traceback.print_exc()
+        sys.stdout.flush()
+        raise
+
+
+def parallel_phase(torch):
+    """The sharded path on every visible card: one spawned process a card
+    (NCCL, rendezvous through a FileStore in a temp dir), each running
+    ``parallel_rank``.  A rank that fails fails the phase.  Returns rank
+    0's figures."""
+    import multiprocessing
+    import tempfile
+
+    world = torch.cuda.device_count()
+    (ROOT / "build").mkdir(exist_ok=True)
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=parallel_rank, args=(r, world, tmp))
+                 for r in range(world)]
+        for proc in procs:
+            proc.start()
+        deadline = time.time() + PARALLEL_TIMEOUT_S
+        for proc in procs:
+            proc.join(max(1.0, deadline - time.time()))
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        codes = [proc.exitcode for proc in procs]
+        check(all(code == 0 for code in codes),
+              f"parallel phase: rank exit codes {codes}")
+        result = json.loads(Path(f"{tmp}/result.json").read_text())
+    print(f"  parallel phase: {time.perf_counter() - t:.1f} s")
+    return result
 
 
 def free_model(torch) -> None:
@@ -2087,18 +2378,27 @@ def main() -> int:
     free_model(torch)
     train_launcher_phase(torch)
     frontend_launcher_phase(torch)
+    free_model(torch)
+    parallel = parallel_phase(torch)
+    sharded_by_path = dict.fromkeys(kernels, 0)
+    for arch in PARALLEL_ARCHS:
+        got = parallel[arch]["sharded_launches"]
+        sharded_by_path["flash"] += got["flash"]
+        sharded_by_path["gmm"] += got["gmm"]
     by_path = {kernel: {"serve": serve_launches[kernel],
                         "train": train_by_path[kernel],
                         "frontend_prefill": prefill_by_path[kernel],
                         "frontend_decode": decode_by_path[kernel],
-                        "frontend_train": frontend_train_by_path[kernel]}
+                        "frontend_train": frontend_train_by_path[kernel],
+                        "sharded_train": sharded_by_path[kernel]}
                for kernel in kernels}
     for kernel, paths in by_path.items():
         launches[kernel] = sum(paths.values())
     print(f"launches by path (serve runs; the timed train steps of "
           f"{TRAIN_ARCH} and of {', '.join(a for a, _ in KIND_TRAIN)}; the "
           f"prefill and decode steps of "
-          f"{', '.join(a for a, _ in FRONTEND)}; their timed train steps): "
+          f"{', '.join(a for a, _ in FRONTEND)}; their timed train steps; "
+          f"the sharded train steps of {', '.join(PARALLEL_ARCHS)}): "
           f"{by_path}")
 
     print(card_line())
@@ -2126,6 +2426,14 @@ def main() -> int:
         "frontend": frontend,
         "frontend_train": {arch: kind_train[arch]
                            for arch, _ in FRONTEND_TRAIN},
+        # the parallel phase: the sharded and plain train steps of qwen3
+        # (wall, busy, idle, kernels, peak), on the world's mesh
+        "sharded_train": {"world": parallel["world"],
+                          "mesh": parallel["mesh"],
+                          "qwen3-0.6b": {
+                              k: parallel["qwen3-0.6b"][k]
+                              for k in ("sharded", "plain", "losses")},
+                          "grad_sync": parallel["grad_sync"]},
     }, {
         "name": "moe_gmm",
         "route": "cuda",
@@ -2141,6 +2449,9 @@ def main() -> int:
         "by_shape": gmm_times,
         # granite-moe-1b-a400m's train step and the plain gmm backward
         "train": kind_train["granite-moe-1b-a400m"],
+        # the parallel phase's sharded and plain granite train steps
+        "sharded_train": {k: parallel["granite-moe-1b-a400m"][k]
+                          for k in ("sharded", "plain", "losses")},
     }, {
         "name": "mamba2_ssd",
         "route": "cuda",

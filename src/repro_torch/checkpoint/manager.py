@@ -17,7 +17,11 @@ written by either package restores in the other.
   checkpoint store is a contended resource when many trainers share a
   filesystem - the paper's mechanism again);
 * **retention**: keeps the newest ``keep`` checkpoints, deleting older ones
-  only after a successful save (never drops the last good state).
+  only after a successful save (never drops the last good state);
+* **sharded**: a DTensor leaf is gathered by ``save`` (every rank calls it)
+  and only rank 0 of a started process group writes; ``restore(shardings=)``
+  places each loaded leaf on the current mesh (the elastic resume: a
+  checkpoint written on one mesh restores on another, or on one device).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from pathlib import Path
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
+import torch.distributed as dist
 
 from ..convert import to_numpy
 from ..core import gcr_wrap
@@ -44,6 +49,11 @@ def _flatten(tree, prefix="") -> Dict[str, Any]:
     else:
         out[prefix[:-1]] = tree
     return out
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0, or a process with no group."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _unflatten(flat: Dict[str, Any]) -> Any:
@@ -71,9 +81,12 @@ class CheckpointManager:
     def save(self, step: int, state: Dict[str, Any],
              extra: Optional[Dict] = None) -> None:
         """state: nested dict of tensors (params/opt/...), copied to the
-        host now; extra: JSON-serializable."""
+        host now (DTensors gathered: every rank calls); extra:
+        JSON-serializable.  Only the writer (rank 0) writes."""
         host = {k: (to_numpy(v), str(v.dtype).removeprefix("torch."))
                 for k, v in _flatten(state).items()}
+        if not _writer():
+            return
         if self.async_save:
             self.wait()
             t = threading.Thread(
@@ -131,11 +144,16 @@ class CheckpointManager:
             return None
         return int(ckpts[-1].name.split("_")[1])
 
-    def restore(self, step: Optional[int] = None):
+    def restore(self, step: Optional[int] = None,
+                shardings: Optional[Any] = None):
         """Returns (step, state, extra), state a nested dict of numpy
         arrays in their logical dtypes, except bf16, which numpy lacks:
         those come back widened to f32 as stored (exactly), and loading
-        them into a bf16 parameter casts them back."""
+        them into a bf16 parameter casts them back.  ``shardings``: a
+        nested dict of ``parallel.sharding.LeafSharding`` matching (part
+        of) the state tree; each leaf it names comes back placed on its
+        mesh (a DTensor, or one per layer for a stacked leaf) - the
+        elastic resume on a different mesh."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -150,4 +168,8 @@ class CheckpointManager:
                 if str(arr.dtype) != want and want != "bfloat16":
                     arr = arr.astype(np.dtype(want))
                 flat[k] = arr
+        if shardings is not None:
+            flat_sh = _flatten(shardings)
+            flat = {k: flat_sh[k].place(v) if k in flat_sh else v
+                    for k, v in flat.items()}
         return manifest["step"], _unflatten(flat), manifest["extra"]

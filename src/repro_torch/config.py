@@ -1,17 +1,17 @@
 """Configuration: the port's own copy of ``repro.config``'s ``ModelConfig``,
-``ShapeSpec`` and ``OptimizerConfig``.
+``ShapeSpec``, ``SHAPES``, ``OptimizerConfig`` and ``MeshConfig``.
 
 Fields and defaults are copied field for field, so a configuration file
 reads the same in both packages; only the derived values the port uses
 (``head_dim``, ``vocab_padded``, ``is_encdec``, ``d_inner``,
-``ssm_heads``, ``rwkv_heads``) are carried over.  The runtime, mesh and
+``ssm_heads``, ``rwkv_heads``) are carried over.  The runtime and
 hardware configs belong to later slices.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Dict, Tuple
 
 
 def pad_to(x: int, m: int) -> int:
@@ -104,6 +104,14 @@ class ShapeSpec:
     kind: str    # "train" | "prefill" | "decode"
 
 
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+
 @dataclass(frozen=True)
 class OptimizerConfig:
     name: str = "adamw"
@@ -117,3 +125,27 @@ class OptimizerConfig:
     grad_clip: float = 1.0
     zero1: bool = True             # shard optimizer state over the data axis
     grad_compression: str = "none"  # none | int8  (cross-pod hop)
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    multi_pod: bool = False
+    # single-pod: (data, model) = (16, 16); multi-pod adds pod=2 in front
+    data: int = 16
+    model: int = 16
+    pods: int = 2
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (self.pods, self.data, self.model) if self.multi_pod \
+            else (self.data, self.model)
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        return ("pod", "data", "model") if self.multi_pod \
+            else ("data", "model")
+
+    @property
+    def n_devices(self) -> int:
+        n = self.data * self.model
+        return n * self.pods if self.multi_pod else n

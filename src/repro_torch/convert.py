@@ -10,6 +10,12 @@ one module per layer.  Names map one to one:
 ``Transformer.enc_layers[i].mlp.wo``, and the unstacked
 ``params["shared_attn"]["attn"]["wq"]`` is ``Transformer.shared_attn.attn.wq``
 (``enc_norm`` and ``frontend_proj`` alike).
+Sharded (DTensor) parameters and moments are gathered (``full_tensor``, a
+collective every rank joins) on the way out, and a loaded leaf is placed
+as its parameter is: a full array is cut locally to the parameter's
+placements, and a DTensor (one per layer for a stacked leaf, as
+``CheckpointManager.restore(shardings=)`` returns them) is redistributed
+to them.
 numpy has no bf16, so arrays arrive widened to f32 and are cast to each
 parameter's dtype on the way in: the model's dtype, and f32 for the MoE
 router, Mamba2's A_log, dt_bias and D and RWKV6's decay_w0 and bonus_u,
@@ -26,6 +32,7 @@ from typing import Callable, Dict, Mapping, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from . import resolve_device
 from .config import ModelConfig
@@ -67,7 +74,9 @@ def _from_tree(module: nn.Module, tree: Mapping,
         key, layer = _tree_key(name)
         if key not in flat:
             raise KeyError(f"{key} missing from the numpy tree")
-        arr = np.asarray(flat[key])
+        arr = flat[key]
+        if not isinstance(arr, (torch.Tensor, list)):
+            arr = np.asarray(arr)
         if layer is not None:
             arr = arr[layer]
         if tuple(arr.shape) != tuple(param.shape):
@@ -91,7 +100,10 @@ def _to_tree(module: nn.Module, value: Callable[[str, torch.Tensor],
     stacked = set()
     for name, param in module.named_parameters():
         key, layer = _tree_key(name)
-        flat.setdefault(key, []).append(value(name, param).detach())
+        val = value(name, param).detach()
+        if isinstance(val, DTensor):
+            val = val.full_tensor()
+        flat.setdefault(key, []).append(val)
         if layer is not None:
             stacked.add(key)
     tree: Dict = {}
@@ -106,7 +118,10 @@ def _to_tree(module: nn.Module, value: Callable[[str, torch.Tensor],
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """A host copy of ``t``; bf16 (which numpy lacks) widened to f32,
-    which holds every bf16 value exactly."""
+    which holds every bf16 value exactly.  A DTensor is gathered first
+    (every rank must call)."""
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     dtype = torch.float32 if t.dtype == torch.bfloat16 else t.dtype
     return t.detach().to("cpu", dtype, copy=True).numpy()
 
@@ -116,14 +131,29 @@ def _numpy(tree: Mapping) -> Dict:
             for k, v in tree.items()}
 
 
+def _placed(param: torch.Tensor, arr) -> torch.Tensor:
+    """``arr`` (numpy, a full tensor or a DTensor) as ``param`` holds it:
+    on its device, and for a DTensor parameter in its placements."""
+    if not isinstance(arr, torch.Tensor):
+        arr = torch.from_numpy(np.array(arr, np.float32))
+    if not isinstance(param, DTensor):
+        return arr.full_tensor() if isinstance(arr, DTensor) else arr
+    if isinstance(arr, DTensor):
+        return arr.redistribute(param.device_mesh, param.placements)
+    return distribute_tensor(arr, param.device_mesh, param.placements,
+                             src_data_rank=None)
+
+
 @torch.no_grad()
 def load_numpy_(module: nn.Module, tree: Mapping) -> nn.Module:
     """Copy a nested dict of numpy arrays into ``module``'s parameters, in
     place.  A ``layers`` (``enc_layers``) subtree is stacked on its
     leading axis and fills ``module.layers[i]`` (``enc_layers[i]``).
-    Raises unless the names and shapes match exactly."""
+    A leaf may also be a tensor or DTensor, or for a stacked subtree a
+    list of one per layer; each is placed as its parameter is (module
+    docstring).  Raises unless the names and shapes match exactly."""
     _from_tree(module, tree, lambda name, param, arr: param.copy_(
-        torch.from_numpy(np.array(arr, np.float32))))
+        _placed(param, arr)))
     return module
 
 
@@ -160,21 +190,30 @@ def opt_state_to_numpy(opt_state: Dict, params: nn.Module) -> Dict:
 def opt_state_from_numpy(tree: Mapping, params: nn.Module) -> Dict:
     """The reference's AdamW state (numpy) -> the port's, on the
     parameters' device: f32 moments keyed by parameter name, an int32
-    count."""
+    count.  Leaves that are already tensors (DTensors placed by
+    ``CheckpointManager.restore(shardings=)``) are kept, as f32."""
     def moments(sub: Mapping) -> Dict[str, torch.Tensor]:
         out: Dict[str, torch.Tensor] = {}
 
         def put(name, param, arr):
-            out[name] = torch.tensor(np.asarray(arr, np.float32),
-                                     device=param.device)
+            if isinstance(arr, torch.Tensor):
+                out[name] = arr.float()
+            else:
+                out[name] = torch.tensor(np.asarray(arr, np.float32),
+                                         device=param.device)
 
         _from_tree(params, sub, put)
         return out
 
-    device = next(params.parameters()).device
+    count = tree["count"]
+    if isinstance(count, torch.Tensor):
+        count = count.to(torch.int32)
+    else:
+        device = next(params.parameters()).device
+        count = torch.tensor(int(np.asarray(count)), dtype=torch.int32,
+                             device=device)
     return {"m": moments(tree["m"]), "v": moments(tree["v"]),
-            "count": torch.tensor(int(np.asarray(tree["count"])),
-                                  dtype=torch.int32, device=device)}
+            "count": count}
 
 
 def params_from_numpy(tree: Mapping, cfg: ModelConfig, device=None,

@@ -27,7 +27,7 @@ from pathlib import Path
 
 import torch
 
-from .. import _build
+from .. import _build, _sharded
 from .ref import attention_ref, flash_bwd_ref
 
 launches = 0
@@ -204,8 +204,13 @@ def flash_attention_fwd(q, k, v, q_pos, k_pos, *, window: int = 0,
     Returns (B,S,Hq,D) in q's dtype, and with ``return_lse`` also the
     rows' log-sum-exp, f32 (B,Hq,S).  impl: auto | ref.  Differentiable
     (through ``FlashAttention``) when grad is enabled and q, k or v
-    requires grad."""
+    requires grad.  DTensors run on each rank's local shards
+    (``kernels._sharded.flash``)."""
     window, causal = int(window), bool(causal)
+    if _sharded.is_sharded(q, k, v):
+        return _sharded.flash(flash_attention_fwd, q, k, v, q_pos, k_pos,
+                              window=window, causal=causal, impl=impl,
+                              return_lse=return_lse)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         out, lse = FlashAttention.apply(q, k, v, q_pos, k_pos, window,

@@ -26,7 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import _build
+from .. import _build, _sharded
 from .._replay import replay_grads
 from .ref import ssd_ref
 
@@ -167,7 +167,10 @@ def ssd(xdt: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
     Bm, Cm: (B,S,N); init_state: (B,H,P,N) f32 or None.  Returns (y
     (B,S,H,P) in xdt's dtype, final_state (B,H,P,N) f32).
     impl: auto | ref.  Differentiable (through ``SSD``) when grad is
-    enabled and an input requires grad."""
+    enabled and an input requires grad.  DTensors run on each rank's local
+    shards (``kernels._sharded.ssd``)."""
+    if _sharded.is_sharded(xdt, a, Bm, Cm, init_state):
+        return _sharded.ssd(ssd, xdt, a, Bm, Cm, init_state, impl=impl)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (xdt, a, Bm, Cm, init_state)):

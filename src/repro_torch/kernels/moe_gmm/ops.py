@@ -35,7 +35,7 @@ from pathlib import Path
 
 import torch
 
-from .. import _build
+from .. import _build, _sharded
 from .ref import gmm_ref
 
 launches = 0
@@ -251,7 +251,10 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *,
     """x: (E,C,D) or (B,E,C,D); w: (E,D,F) -> (E,C,F) or (B,E,C,F) in x's
     dtype, each product accumulated in f32.  impl: auto | ref.
     Differentiable (through ``GroupedMatmul``) when grad is enabled and x
-    or w requires grad."""
+    or w requires grad.  DTensors run on each rank's local shards
+    (``kernels._sharded.gmm``)."""
+    if _sharded.is_sharded(x, w):
+        return _sharded.gmm(grouped_matmul, x, w, impl=impl)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return GroupedMatmul.apply(x, w, impl)
     return _forward(x, w, impl)

@@ -27,7 +27,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import _build
+from .. import _build, _sharded
 from .._replay import replay_grads
 from .ref import wkv_ref
 
@@ -185,7 +185,10 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     u: (H,P) f32 bonus; init_state: (B,H,P,P) f32 ``[k_dim, v_dim]`` or
     None.  Returns (y (B,S,H,P) in r's dtype, final_state (B,H,P,P) f32).
     impl: auto | ref.  Differentiable (through ``WKV``) when grad is
-    enabled and an input requires grad."""
+    enabled and an input requires grad.  DTensors run on each rank's local
+    shards (``kernels._sharded.wkv``)."""
+    if _sharded.is_sharded(r, k, v, w, u, init_state):
+        return _sharded.wkv(wkv, r, k, v, w, u, init_state, impl=impl)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (r, k, v, w, u, init_state)):

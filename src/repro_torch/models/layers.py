@@ -15,6 +15,11 @@ Modules (``Attention``, ``MLP``) only hold parameters; the computation is
 in plain functions that take them, with the reference's names.
 Parameters are built without grad, so serving records no graph;
 ``steps.init_train_state`` turns grad on for training.
+
+``sc`` is the reference's sharding hook, called at the reference's call
+sites with the same kinds: ``no_sc`` (the default) returns its input, and
+``parallel.ShardingRules.constrain`` pins a DTensor to the kind's
+placements.
 """
 
 from __future__ import annotations
@@ -27,10 +32,16 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..kernels import _sharded
 from ..kernels.flash_attention.ops import flash_attention_fwd
 from ..kernels.flash_attention.ref import attention_ref
 
 NEG_INF = -1e30
+
+
+def no_sc(x, kind: Optional[str] = None):
+    """The sharding hook without rules: the identity."""
+    return x
 
 
 def _param(shape, device, dtype) -> nn.Parameter:
@@ -81,6 +92,14 @@ def embed_init_(w: torch.Tensor, generator: torch.Generator) -> None:
     draw = torch.randn(w.shape, generator=generator, device=w.device,
                        dtype=torch.float32)
     w.copy_(draw * 0.02)
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``; a DTensor table is looked up on each rank's own
+    vocab range (``kernels._sharded.embedding``)."""
+    if _sharded.is_sharded(table):
+        return _sharded.embedding(table, tokens)
+    return table[tokens]
 
 
 # ---------------------------------------------------------------------------
@@ -147,7 +166,12 @@ def _cache_write(cache: Dict, k: torch.Tensor, v: torch.Tensor,
 
     In place (``index_copy_``), where the reference builds new arrays:
     this saves a copy of every layer's cache per step.  Returns ``cache``.
+    DTensor caches (split by the rules' cache specs) are written by each
+    rank in its own slots (``kernels._sharded.cache_write``).
     """
+    if _sharded.is_sharded(cache["k"]):
+        _sharded.cache_write(cache, k, v, cache_pos)
+        return cache
     Tc = cache["k"].shape[1]
     S = k.shape[1]
     Lw = min(S, Tc)
@@ -188,6 +212,7 @@ def multihead_attention(
     is_cross: bool = False,         # cross-attention (kv from kv_src/cache)
     eps: float = 1e-5,
     impl: str = "auto",             # prompt attention: auto | ref
+    sc=no_sc,                       # sharding hook
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Self- or cross-attention.  Returns (output (B,S,d_model), cache).
 
@@ -236,7 +261,14 @@ def multihead_attention(
             k = apply_rope(k, positions, rope_theta)
         if cache is not None:
             cache = _cache_write(cache, k, v, cache_pos)
-    if decode:
+    if decode and _sharded.is_sharded(cache["k"]):
+        # sequence-split caches: the softmax reduced across the ranks
+        k_pos = (_cache_slot_positions(cache["k"].shape[1], cache_pos, S,
+                                       x.device) if causal else None)
+        out = _sharded.decode_attention(q, cache["k"], cache["v"],
+                                        positions, k_pos, window, causal,
+                                        n_kv)
+    elif decode:
         qg = q.reshape(B, S, n_kv, n_heads // n_kv, d_head)
         if causal:
             k_pos = _cache_slot_positions(cache["k"].shape[1], cache_pos, S,
@@ -249,10 +281,17 @@ def multihead_attention(
             probs = torch.softmax(scores, dim=-1).to(q.dtype)
             out = torch.einsum("bhgst,bthd->bshgd", probs, v)
     else:
+        if n_heads == n_kv:
+            # full MHA: pin k/v to the heads layout (GQA kv heads are
+            # placed by the kernel op, which reads them natively)
+            k = sc(k, "heads")
+            v = sc(v, "heads")
+        q = sc(q, "heads")
         k_pos = (torch.arange(k.shape[1], dtype=torch.int32,
                               device=x.device) if is_cross else positions)
         out = flash_attention_fwd(q, k, v, positions, k_pos, window=window,
                                   causal=causal, impl=impl)
+        out = sc(out, "heads")
     return out.reshape(B, S, n_heads * d_head) @ p.wo, cache
 
 
@@ -276,25 +315,31 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     logits = logits.float()
     m = logits.amax(dim=-1, keepdim=True)
     lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(dim=-1))
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
-    nll = lse - gold
+    nll = lse - _gold(logits, targets)
     if mask is not None:
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()
 
 
-def _xent_chunk(x, w, targets, mask):
-    logits = (x @ w).float()
+def _gold(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """The targets' logits; a vocab-sharded DTensor gathers each rank's
+    own range (``kernels._sharded.vocab_gather``)."""
+    if _sharded.is_sharded(logits):
+        return _sharded.vocab_gather(logits, targets)
+    return torch.gather(logits, -1, targets[..., None].long())[..., 0]
+
+
+def _xent_chunk(x, w, targets, mask, sc=no_sc):
+    logits = sc(x @ w, "logits").float()
     m = logits.amax(dim=-1, keepdim=True)
     lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(dim=-1))
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
-    return ((lse - gold) * mask).sum(), mask.sum()
+    return ((lse - _gold(logits, targets)) * mask).sum(), mask.sum()
 
 
 def chunked_softmax_xent(x: torch.Tensor, w: torch.Tensor,
                          targets: torch.Tensor,
                          mask: Optional[torch.Tensor],
-                         chunk: int = 512) -> torch.Tensor:
+                         chunk: int = 512, sc=no_sc) -> torch.Tensor:
     """CE over the LM head without materializing full (B,S,V) logits.
 
     Walks sequence chunks, recomputing each chunk's logits in the backward
@@ -305,7 +350,7 @@ def chunked_softmax_xent(x: torch.Tensor, w: torch.Tensor,
     (the reference needs S to divide)."""
     B, S, D = x.shape
     if S <= chunk:
-        return cross_entropy(x @ w, targets, mask)
+        return cross_entropy(sc(x @ w, "logits"), targets, mask)
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -313,6 +358,6 @@ def chunked_softmax_xent(x: torch.Tensor, w: torch.Tensor,
     for s0 in range(0, S, chunk):
         part = slice(s0, s0 + chunk)
         nll, n = checkpoint(_xent_chunk, x[:, part], w, targets[:, part],
-                            mask[:, part], use_reentrant=False)
+                            mask[:, part], sc, use_reentrant=False)
         tot, cnt = tot + nll, cnt + n
     return tot / torch.clamp(cnt, min=1.0)

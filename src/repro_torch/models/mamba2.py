@@ -25,7 +25,7 @@ from torch import nn
 
 from ..kernels.mamba2_ssd import ops
 from ..kernels.mamba2_ssd.ref import CHUNK, ssd_ref
-from .layers import _param, dense_init_, rms_norm
+from .layers import _param, dense_init_, no_sc, rms_norm
 
 
 class Mamba2(nn.Module):
@@ -115,9 +115,11 @@ def mamba2_forward(
     conv_state: Optional[Dict[str, torch.Tensor]] = None,
     return_state: bool = False,
     impl: str = "auto",
+    sc=no_sc,
 ):
     """Full-sequence forward (prefill).  ``impl="ref"`` sends the scan to
-    the plain version even on the card (for comparing)."""
+    the plain version even on the card (for comparing).  ``sc`` pins the
+    scan's input to the heads layout (the kernel splits by heads)."""
     B, S, _ = x.shape
     z, xin, Bmat, Cmat, dt = _project(p, x)
 
@@ -131,7 +133,7 @@ def mamba2_forward(
     A = -torch.exp(p.A_log)                                     # (H,)
     a = dt * A                                                  # log decay
     xh = xin.reshape(B, S, n_heads, head_dim)
-    xdt = (xh.float() * dt[..., None]).to(x.dtype)
+    xdt = sc((xh.float() * dt[..., None]).to(x.dtype), "heads")
 
     y, final_state = ops.ssd(xdt, a, Bmat.to(x.dtype), Cmat.to(x.dtype),
                              ssm_state, impl=impl)

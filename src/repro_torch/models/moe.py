@@ -25,8 +25,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+
 from ..kernels.moe_gmm.ops import grouped_matmul
-from .layers import _param, dense_init_
+from .layers import _param, dense_init_, no_sc
 
 
 class MoE(nn.Module):
@@ -112,26 +115,15 @@ class _Dispatch(torch.autograd.Function):
                 .view(*slot.shape, -1).sum(1), None, None)
 
 
-def moe_mlp(
-    p: MoE,
-    x: torch.Tensor,                 # (B, S, D)
-    *,
-    n_experts: int,
-    top_k: int,
-    capacity_factor: float = 1.25,
-    gcr_admission: bool = False,
-    priority_offset: Optional[Union[int, torch.Tensor]] = None,
-    impl: str = "auto",              # expert products: auto | ref
-) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Returns (output (B,S,D) in x's dtype, aux metrics incl. the
-    load-balance loss), as ``repro.models.moe.moe_mlp``."""
+def _dispatch(router: torch.Tensor, x: torch.Tensor, E: int, k: int,
+              cap: int, offset):
+    """Routing, admission and the scatter into the capacity buffers, per
+    batch row: (expert_in (B,E,C,D), gate_vals (B,S,k) zeroed where not
+    admitted, the combine's slot index (B,S,k), and for the aux metrics
+    the router's logits and probabilities, expert_idx and admitted)."""
     B, S, D = x.shape
-    E, k = n_experts, top_k
-    logits, probs, gate_vals, expert_idx = router_topk(p.router, x, k)
-    cap = _capacity(S, E, k, capacity_factor)
-
-    rank_in_expert = admission_ranks(
-        expert_idx, E, priority_offset if gcr_admission else None)
+    logits, probs, gate_vals, expert_idx = router_topk(router, x, k)
+    rank_in_expert = admission_ranks(expert_idx, E, offset)
     admitted = rank_in_expert < cap                            # active set
     gate_vals = gate_vals * admitted                           # passive -> 0
 
@@ -149,19 +141,58 @@ def moe_mlp(
     src.index_copy_(0, slot.reshape(-1), token.reshape(-1))
     expert_in = _Dispatch.apply(x.reshape(B * S, D), src[:-1],
                                 slot.reshape(B * S, k)).view(B, E, cap, D)
+    # dropped slots read slot 0 of their expert, under a zero gate, as in
+    # the reference
+    combine_idx = (rows * E + expert_idx) * cap + flat_c
+    return (expert_in, gate_vals, combine_idx, logits, probs, expert_idx,
+            admitted)
+
+
+def _combine(expert_out: torch.Tensor, combine_idx: torch.Tensor,
+             gate_vals: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Gather each (token, slot)'s expert output back and combine in
+    ``dtype``; the gather's backward adds the dropped slots' zero
+    gradients into slot 0, which leaves it as it is."""
+    B, E, cap, D = expert_out.shape
+    S, k = combine_idx.shape[1:]
+    gathered = expert_out.reshape(B * E * cap, D).index_select(
+        0, combine_idx.reshape(-1))
+    gathered = gathered.view(B, S, k, D) * gate_vals[..., None].to(dtype)
+    return gathered.sum(dim=2)
+
+
+def moe_mlp(
+    p: MoE,
+    x: torch.Tensor,                 # (B, S, D)
+    *,
+    n_experts: int,
+    top_k: int,
+    capacity_factor: float = 1.25,
+    gcr_admission: bool = False,
+    priority_offset: Optional[Union[int, torch.Tensor]] = None,
+    impl: str = "auto",              # expert products: auto | ref
+    sc=no_sc,                        # sharding hook
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Returns (output (B,S,D) in x's dtype, aux metrics incl. the
+    load-balance loss), as ``repro.models.moe.moe_mlp``.
+
+    A DTensor ``x`` (under sharding rules) is routed, dispatched and
+    combined on each rank's own batch rows (``_sharded_moe``); the expert
+    products run on the layout ``sc(..., "moe_buf")`` gives them."""
+    B, S, D = x.shape
+    E, k = n_experts, top_k
+    cap = _capacity(S, E, k, capacity_factor)
+    offset = priority_offset if gcr_admission else None
+    if isinstance(x, DTensor):
+        return _sharded_moe(p, x, E, k, cap, offset, impl, sc)
+    (expert_in, gate_vals, combine_idx, logits, probs, expert_idx,
+     admitted) = _dispatch(p.router, x, E, k, cap, offset)
+    expert_in = sc(expert_in, "moe_buf")
 
     h = F.silu(grouped_matmul(expert_in, p.wi_gate, impl=impl)) \
         * grouped_matmul(expert_in, p.wi_up, impl=impl)
-    expert_out = grouped_matmul(h, p.wo, impl=impl)            # (B,E,C,D)
-
-    # --- gather back (dropped slots read slot 0 of their expert, under a
-    # zero gate, as in the reference) and combine in x's dtype; the
-    # gather's backward adds the dropped slots' zero gradients into slot
-    # 0, which leaves it as it is -------------------------------------
-    gathered = expert_out.reshape(B * E * cap, D).index_select(
-        0, ((rows * E + expert_idx) * cap + flat_c).reshape(-1))
-    gathered = gathered.view(B, S, k, D) * gate_vals[..., None].to(x.dtype)
-    out = gathered.sum(dim=2)
+    expert_out = sc(grouped_matmul(h, p.wo, impl=impl), "moe_buf")
+    out = _combine(expert_out, combine_idx, gate_vals, x.dtype)
 
     # aux: load-balance loss (Switch) + router z-loss + drop fraction
     density = F.one_hot(expert_idx, E).float().mean(dim=(0, 1, 2)) * E
@@ -173,3 +204,51 @@ def moe_mlp(
     }
     return out, aux
 
+
+def _sharded_moe(p, x, E: int, k: int, cap: int, offset, impl: str, sc):
+    """``moe_mlp`` for a DTensor ``x``.  Routing, admission and capacity
+    are per batch row, so ``_dispatch`` and ``_combine`` run through
+    ``local_map`` on each rank's whole rows (x split only by batch,
+    replicated on every other mesh dim); the three expert products take
+    the capacity buffers as ``sc`` places them (EP: experts on the model
+    axis) and the combine gathers them back.  The aux metrics are means
+    over the global batch (DTensor reductions of the rows' values)."""
+    mesh = x.device_mesh
+    rows = [Shard(0) if pl == Shard(0) else Replicate()
+            for pl in x.placements]
+    rep = [Replicate()] * mesh.ndim
+    # the router's gradient sums over the batch-split dims
+    router_grad = [Partial() if pl == Shard(0) else Replicate()
+                   for pl in rows]
+
+    def front(xl, rl):
+        (expert_in, gate_vals, combine_idx, logits, probs, expert_idx,
+         admitted) = _dispatch(rl, xl, E, k, cap, offset)
+        return (expert_in, gate_vals, combine_idx, probs,
+                torch.logsumexp(logits, dim=-1).square(),
+                F.one_hot(expert_idx, E).float(), admitted.float())
+
+    (expert_in, gate_vals, combine_idx, probs, lse2, assign,
+     admitted) = local_map(
+        front, out_placements=(rows,) * 7, in_placements=(rows, rep),
+        in_grad_placements=(rows, router_grad), device_mesh=mesh,
+        redistribute_inputs=True)(x, p.router)
+    expert_in = sc(expert_in, "moe_buf")
+    h = F.silu(grouped_matmul(expert_in, p.wi_gate, impl=impl)) \
+        * grouped_matmul(expert_in, p.wi_up, impl=impl)
+    expert_out = sc(grouped_matmul(h, p.wo, impl=impl), "moe_buf")
+    out = local_map(
+        lambda eo, ci, gv: _combine(eo, ci, gv, x.dtype),
+        out_placements=rows, in_placements=(rows, rows, rows),
+        in_grad_placements=(rows, rows, rows), device_mesh=mesh,
+        redistribute_inputs=True)(expert_out, combine_idx, gate_vals)
+
+    density = assign.mean(dim=(0, 1, 2)) * E
+    router_prob = probs.mean(dim=(0, 1)) * E
+    aux = {
+        "moe_lb_loss": (density * router_prob).mean(),
+        "moe_z_loss": lse2.mean(),
+        "moe_drop_frac": 1.0 - admitted.mean(),
+    }
+    # the batch means summed over the ranks now (replicated scalars)
+    return out, {key: val.redistribute(mesh, rep) for key, val in aux.items()}

@@ -30,7 +30,7 @@ from torch import nn
 
 from ..kernels.rwkv6_wkv import ops
 from ..kernels.rwkv6_wkv.ref import MAX_DECAY_RATE
-from .layers import _param, dense_init_
+from .layers import _param, dense_init_, no_sc
 
 LORA_DIM = 64
 
@@ -114,10 +114,13 @@ def rwkv6_time_mix(
     wkv_state: Optional[torch.Tensor] = None,
     return_state: bool = False,
     impl: str = "auto",
+    sc=no_sc,
 ):
     """x: (B,S,D).  Returns the output and, with ``return_state``, the
     shift state (B,1,D) and the final WKV state.  ``impl="ref"`` sends
-    the WKV to the plain version even on the card (for comparing)."""
+    the WKV to the plain version even on the card (for comparing).
+    ``sc`` pins r, k, v and w to the heads layout (the kernel splits by
+    heads)."""
     B, S, D = x.shape
     xs = _token_shift(x, shift_state)
     xr = _lerp(x, xs, p.mu_r)
@@ -126,11 +129,11 @@ def rwkv6_time_mix(
     xw = _lerp(x, xs, p.mu_w)
     xg = _lerp(x, xs, p.mu_g)
 
-    r = (xr @ p.w_r).reshape(B, S, n_heads, head_dim)
-    k = (xk @ p.w_k).reshape(B, S, n_heads, head_dim)
-    v = (xv @ p.w_v).reshape(B, S, n_heads, head_dim)
+    r = sc((xr @ p.w_r).reshape(B, S, n_heads, head_dim), "heads")
+    k = sc((xk @ p.w_k).reshape(B, S, n_heads, head_dim), "heads")
+    v = sc((xv @ p.w_v).reshape(B, S, n_heads, head_dim), "heads")
     g = F.silu(xg @ p.w_g)
-    w = _decay(p, xw).reshape(B, S, n_heads, head_dim)
+    w = sc(_decay(p, xw).reshape(B, S, n_heads, head_dim), "heads")
 
     y, final_wkv = ops.wkv(r, k, v, w, p.bonus_u, wkv_state, impl=impl)
     y = _group_norm_heads(y.reshape(B, S, D).to(x.dtype), p.ln_x_w,

@@ -254,47 +254,55 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None,
 # ---------------------------------------------------------------------------
 
 
+def _residual(sc, x, out):
+    """``x + out`` pinned to the residual's layout (the reference's
+    ``sc(x + out, "residual")``), ``out`` pinned first: a DTensor add
+    that moved ``out`` itself would hand its backward a gradient in a
+    layout the branch never had."""
+    return sc(x + sc(out, "residual"), "residual")
+
+
 def _apply_attn_block(cfg: ModelConfig, p: Block, x, positions, cache,
                       cache_pos: int, *, decode: bool, impl: str = "auto",
                       moe_offset=None, causal: bool = True, cross_src=None,
-                      cross_cache: Optional[Dict] = None):
+                      cross_cache: Optional[Dict] = None, sc=L.no_sc):
     """attn (+ cross) + mlp/moe block.  Returns (x, cache, aux); aux holds
     the MoE metrics and is empty for a dense block.  A block with
     ``cross`` attends over ``cross_src`` (the encoder's output; prefill
     writes its K/V into ``cross_cache``) or, in decode, over
     ``cross_cache`` alone."""
-    h = L.rms_norm(x, p.ln1, cfg.norm_eps)
+    h = sc(L.rms_norm(x, p.ln1, cfg.norm_eps), "block_in")
     attn_out, cache = L.multihead_attention(
         p.attn, h, positions, cache, cache_pos,
         n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, d_head=cfg.head_dim,
         qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
         window=cfg.sliding_window, causal=causal, decode=decode,
-        eps=cfg.norm_eps, impl=impl)
-    x = x + attn_out
+        eps=cfg.norm_eps, impl=impl, sc=sc)
+    x = _residual(sc, x, attn_out)
     if hasattr(p, "cross"):
-        hc = L.rms_norm(x, p.ln_cross, cfg.norm_eps)
+        hc = sc(L.rms_norm(x, p.ln_cross, cfg.norm_eps), "block_in")
         cross_out, _ = L.multihead_attention(
             p.cross, hc, positions, cross_cache, cache_pos,
             n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, d_head=cfg.head_dim,
             causal=False, decode=decode, kv_src=cross_src, is_cross=True,
-            eps=cfg.norm_eps, impl=impl)
-        x = x + cross_out
-    h2 = L.rms_norm(x, p.ln2, cfg.norm_eps)
+            eps=cfg.norm_eps, impl=impl, sc=sc)
+        x = _residual(sc, x, cross_out)
+    h2 = sc(L.rms_norm(x, p.ln2, cfg.norm_eps), "block_in")
     if hasattr(p, "moe"):
         moe_out, aux = MOE.moe_mlp(
             p.moe, h2, n_experts=cfg.n_experts, top_k=cfg.n_experts_active,
             capacity_factor=cfg.moe_capacity_factor,
             gcr_admission=cfg.gcr_moe, priority_offset=moe_offset,
-            impl=impl)
-        return x + moe_out, cache, aux
-    return x + L.mlp(p.mlp, h2), cache, {}
+            impl=impl, sc=sc)
+        return _residual(sc, x, moe_out), cache, aux
+    return _residual(sc, x, L.mlp(p.mlp, h2)), cache, {}
 
 
 def _apply_mamba_block(cfg: ModelConfig, p: Block, x, cache: Optional[Dict],
-                       *, decode: bool, impl: str = "auto"):
+                       *, decode: bool, impl: str = "auto", sc=L.no_sc):
     """ln1 + Mamba2 block.  Returns x; the cache's states are replaced
     in place."""
-    h = L.rms_norm(x, p.ln1, cfg.norm_eps)
+    h = sc(L.rms_norm(x, p.ln1, cfg.norm_eps), "block_in")
     kw = dict(d_inner=cfg.d_inner, n_state=cfg.ssm_state,
               n_heads=cfg.ssm_heads, head_dim=cfg.ssm_head_dim,
               eps=cfg.norm_eps)
@@ -304,46 +312,48 @@ def _apply_mamba_block(cfg: ModelConfig, p: Block, x, cache: Optional[Dict],
     elif cache is not None:  # prefill: thread states through (f32 state)
         out, (cache["ssm"], cache["conv"]) = M.mamba2_forward(
             p.mamba, h, ssm_state=cache["ssm"], conv_state=cache["conv"],
-            return_state=True, impl=impl, **kw)
+            return_state=True, impl=impl, sc=sc, **kw)
     else:
-        out = M.mamba2_forward(p.mamba, h, impl=impl, **kw)
-    return x + out
+        out = M.mamba2_forward(p.mamba, h, impl=impl, sc=sc, **kw)
+    return _residual(sc, x, out)
 
 
 def _apply_rwkv_block(cfg: ModelConfig, p: Block, x,
                       cache: Optional[Dict], *, decode: bool,
-                      impl: str = "auto"):
+                      impl: str = "auto", sc=L.no_sc):
     """ln1 + time mix, ln2 + channel mix.  Returns x; the cache's states
     (the normed inputs' last token and the f32 WKV state) are replaced in
     place."""
     kw = dict(n_heads=cfg.rwkv_heads, head_dim=cfg.rwkv_head_dim)
-    h = L.rms_norm(x, p.ln1, cfg.norm_eps)
+    h = sc(L.rms_norm(x, p.ln1, cfg.norm_eps), "block_in")
     if decode:
         tm_out, cache["tm_shift"], cache["wkv"] = R.rwkv6_time_mix_step(
             p.rwkv, h, cache["tm_shift"], cache["wkv"], **kw)
-        x = x + tm_out
-        h2 = L.rms_norm(x, p.ln2, cfg.norm_eps)
+        x = _residual(sc, x, tm_out)
+        h2 = sc(L.rms_norm(x, p.ln2, cfg.norm_eps), "block_in")
         cm_out, cache["cm_shift"] = R.rwkv6_channel_mix_step(
             p.rwkv, h2, cache["cm_shift"])
-        return x + cm_out
+        return _residual(sc, x, cm_out)
     if cache is not None:  # prefill: thread states through (f32 state)
         tm_out, cache["tm_shift"], cache["wkv"] = R.rwkv6_time_mix(
             p.rwkv, h, shift_state=cache["tm_shift"],
-            wkv_state=cache["wkv"], return_state=True, impl=impl, **kw)
-        x = x + tm_out
-        h2 = L.rms_norm(x, p.ln2, cfg.norm_eps)
+            wkv_state=cache["wkv"], return_state=True, impl=impl, sc=sc,
+            **kw)
+        x = _residual(sc, x, tm_out)
+        h2 = sc(L.rms_norm(x, p.ln2, cfg.norm_eps), "block_in")
         cm_out, cache["cm_shift"] = R.rwkv6_channel_mix(
             p.rwkv, h2, shift_state=cache["cm_shift"], return_state=True)
-        return x + cm_out
-    x = x + R.rwkv6_time_mix(p.rwkv, h, impl=impl, **kw)
-    h2 = L.rms_norm(x, p.ln2, cfg.norm_eps)
-    return x + R.rwkv6_channel_mix(p.rwkv, h2)
+        return _residual(sc, x, cm_out)
+    x = _residual(sc, x, R.rwkv6_time_mix(p.rwkv, h, impl=impl, sc=sc,
+                                          **kw))
+    h2 = sc(L.rms_norm(x, p.ln2, cfg.norm_eps), "block_in")
+    return _residual(sc, x, R.rwkv6_channel_mix(p.rwkv, h2))
 
 
 def _stack(cfg: ModelConfig, params: Transformer, x, positions,
            caches: Optional[Dict], cache_pos: int, *, decode: bool,
            impl: str = "auto", moe_offset=None, remat: bool = False,
-           cross_src=None):
+           cross_src=None, sc=L.no_sc):
     """Run the decoder stack (the reference's layer scan, as a loop), with
     the shared block after layer i when (i + 1) % shared_attn_every == 0,
     on shared cache i // shared_attn_every, and layer i's cross-attention
@@ -353,7 +363,9 @@ def _stack(cfg: ModelConfig, params: Transformer, x, positions,
     a unit is one layer and, where it follows that layer, the shared
     block.  ``cross_src`` goes to the checkpoint as an input of the unit,
     so the recomputation reads it as the forward did and its gradient
-    flows back to the encoder."""
+    flows back to the encoder.  ``sc`` is the sharding hook: each unit
+    gathers its parameters through it (``sc(p, "params")``) inside the
+    recomputed region."""
     k = cfg.shared_attn_every
     auxes = []
     for i, lp in enumerate(params.layers):
@@ -364,7 +376,7 @@ def _stack(cfg: ModelConfig, params: Transformer, x, positions,
             scache = caches["shared"][i // k] if shared is not None else None
             lcross = caches["cross"][i] if cfg.is_encdec else None
         args = (cfg, lp, shared, x, positions, lcache, scache, cache_pos,
-                decode, impl, moe_offset, cross_src, lcross)
+                decode, impl, moe_offset, cross_src, lcross, sc)
         if remat:
             x, aux = checkpoint(_unit, *args, use_reentrant=False)
         else:
@@ -379,23 +391,28 @@ def _stack(cfg: ModelConfig, params: Transformer, x, positions,
 def _unit(cfg: ModelConfig, p: Block, shared: Optional[Block], x,
           positions, lcache: Optional[Dict], scache: Optional[Dict],
           cache_pos: int, decode: bool, impl: str, moe_offset,
-          cross_src=None, lcross: Optional[Dict] = None):
+          cross_src=None, lcross: Optional[Dict] = None, sc=L.no_sc):
     """One layer and, where one follows it, the shared block; the caches
     (None without) are updated in place.  Returns (x, aux), aux the MoE
     metrics (empty for the other kinds)."""
     aux = {}
+    p = sc(p, "params")
     if hasattr(p, "mamba"):
-        x = _apply_mamba_block(cfg, p, x, lcache, decode=decode, impl=impl)
+        x = _apply_mamba_block(cfg, p, x, lcache, decode=decode, impl=impl,
+                               sc=sc)
     elif hasattr(p, "rwkv"):
-        x = _apply_rwkv_block(cfg, p, x, lcache, decode=decode, impl=impl)
+        x = _apply_rwkv_block(cfg, p, x, lcache, decode=decode, impl=impl,
+                              sc=sc)
     else:
         x, _, aux = _apply_attn_block(cfg, p, x, positions, lcache,
                                       cache_pos, decode=decode, impl=impl,
                                       moe_offset=moe_offset,
-                                      cross_src=cross_src, cross_cache=lcross)
+                                      cross_src=cross_src, cross_cache=lcross,
+                                      sc=sc)
     if shared is not None:
-        x, _, _ = _apply_attn_block(cfg, shared, x, positions, scache,
-                                    cache_pos, decode=decode, impl=impl)
+        x, _, _ = _apply_attn_block(cfg, sc(shared, "params"), x, positions,
+                                    scache, cache_pos, decode=decode,
+                                    impl=impl, sc=sc)
     return x, aux
 
 
@@ -414,7 +431,8 @@ def _project(stub: torch.Tensor, w: torch.Tensor,
 
 
 def _encode(cfg: ModelConfig, params: Transformer, batch: Dict,
-            remat: bool, impl: str = "auto") -> Optional[torch.Tensor]:
+            remat: bool, impl: str = "auto",
+            sc=L.no_sc) -> Optional[torch.Tensor]:
     """``batch["frames"]`` (B, T_enc, frontend_dim), precomputed embeddings
     (the stub) -> the encoder's output (B, T_enc, d_model); None for a
     model without an encoder.  The frames' projection,
@@ -426,18 +444,20 @@ def _encode(cfg: ModelConfig, params: Transformer, batch: Dict,
     model's dtype, as the reference casts the vision stub's patches."""
     if not cfg.is_encdec:
         return None
-    x = _project(batch["frames"], params.frontend_proj, params.embed.dtype)
+    x = sc(_project(batch["frames"], sc(params.frontend_proj, "params"),
+                    params.embed.dtype), "residual")
     positions = _positions(0, x.shape[1], x.device)
     for lp in params.enc_layers:
-        args = (cfg, lp, x, positions, impl)
+        args = (cfg, lp, x, positions, impl, sc)
         x = (checkpoint(_enc_unit, *args, use_reentrant=False) if remat
              else _enc_unit(*args))
-    return L.rms_norm(x, params.enc_norm, cfg.norm_eps)
+    return sc(L.rms_norm(x, params.enc_norm, cfg.norm_eps), "block_in")
 
 
-def _enc_unit(cfg: ModelConfig, p: Block, x, positions, impl: str):
-    x, _, _ = _apply_attn_block(cfg, p, x, positions, None, 0, decode=False,
-                                impl=impl, causal=False)
+def _enc_unit(cfg: ModelConfig, p: Block, x, positions, impl: str,
+              sc=L.no_sc):
+    x, _, _ = _apply_attn_block(cfg, sc(p, "params"), x, positions, None, 0,
+                                decode=False, impl=impl, causal=False, sc=sc)
     return x
 
 
@@ -450,22 +470,24 @@ def _positions(start: int, n: int, device) -> torch.Tensor:
     return torch.arange(start, start + n, dtype=torch.int32, device=device)
 
 
-def _embed_inputs(cfg: ModelConfig, params: Transformer, batch: Dict):
+def _embed_inputs(cfg: ModelConfig, params: Transformer, batch: Dict,
+                  sc=L.no_sc):
     """Returns (the decoder's input embeddings, loss mask or None).  The
     vision stub's patches, projected, come before the tokens; the mask is
     zero on them."""
     tokens = batch["tokens"]
-    x = params.embed[tokens]
+    x = L.embed_lookup(sc(params.embed, "params"), tokens)
     mask = None
     if cfg.frontend == "vision_stub":
-        patches = _project(batch["patches"], params.frontend_proj, x.dtype)
+        patches = _project(batch["patches"],
+                           sc(params.frontend_proj, "params"), x.dtype)
         x = torch.cat([patches, x], dim=1)
         B, P = patches.shape[:2]
         mask = torch.cat([
             torch.zeros((B, P), dtype=torch.float32, device=x.device),
             torch.ones(tuple(tokens.shape), dtype=torch.float32,
                        device=x.device)], dim=1)
-    return x, mask
+    return sc(x, "residual"), mask
 
 
 def forward_logits(cfg: ModelConfig, params: Transformer, batch,
@@ -485,7 +507,8 @@ def forward_logits(cfg: ModelConfig, params: Transformer, batch,
 
 
 def forward_train(cfg: ModelConfig, params: Transformer, batch: Dict,
-                  remat: bool = True, moe_offset=None, impl: str = "auto"):
+                  remat: bool = True, moe_offset=None, impl: str = "auto",
+                  sc=L.no_sc):
     """Full-sequence forward to the loss; returns (loss, metrics).
 
     ``batch`` holds int ``tokens`` and ``targets`` (B, S), and the
@@ -502,22 +525,24 @@ def forward_train(cfg: ModelConfig, params: Transformer, batch: Dict,
     the flash, gmm, ssd and wkv kernels run their forwards inside autograd
     ops whose backwards are plain PyTorch.  ``moe_offset`` rotates the
     MoE's admission order (GCR-MoE).  ``impl="ref"`` sends every kernel
-    to its plain version on the card."""
+    to its plain version on the card.  ``sc`` is the sharding hook
+    (``parallel.ShardingRules.constrain``, or none)."""
     _check_supported(cfg)
-    x, mask = _embed_inputs(cfg, params, batch)
+    x, mask = _embed_inputs(cfg, params, batch, sc)
     positions = _positions(0, x.shape[1], x.device)
-    cross_src = _encode(cfg, params, batch, remat, impl)
+    cross_src = _encode(cfg, params, batch, remat, impl, sc)
     x, _, aux = _stack(cfg, params, x, positions, None, 0, decode=False,
                        impl=impl, moe_offset=moe_offset, remat=remat,
-                       cross_src=cross_src)
-    x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
+                       cross_src=cross_src, sc=sc)
+    x = sc(L.rms_norm(x, params.final_norm, cfg.norm_eps), "block_in")
     targets = batch["targets"]
     if cfg.frontend == "vision_stub":
         # the patches' positions carry no targets
         pad = torch.zeros((targets.shape[0], x.shape[1] - targets.shape[1]),
                           dtype=targets.dtype, device=targets.device)
         targets = torch.cat([pad, targets], dim=1)
-    loss = L.chunked_softmax_xent(x, params.lm_head, targets, mask)
+    loss = L.chunked_softmax_xent(x, sc(params.lm_head, "params"), targets,
+                                  mask, sc=sc)
     for key, val in aux.items():
         if key.endswith("_loss"):
             loss = loss + 0.01 * val
@@ -525,7 +550,7 @@ def forward_train(cfg: ModelConfig, params: Transformer, batch: Dict,
 
 
 def prefill(cfg: ModelConfig, params: Transformer, batch: Dict,
-            max_len: int, impl: str = "auto"):
+            max_len: int, impl: str = "auto", sc=L.no_sc):
     """Process the prompt ``batch["tokens"]`` (B, S_tok), after the vision
     stub's ``patches`` or with the audio stub's ``frames`` encoded; returns
     (last-token logits (B, 1, V), populated cache).  The cache's ``pos``
@@ -533,29 +558,85 @@ def prefill(cfg: ModelConfig, params: Transformer, batch: Dict,
     ``impl="ref"`` sends prompt, encoder and cross-attention, the expert
     products, the SSD scan and the WKV to their plain versions even on
     the card (for comparing)."""
-    x, _ = _embed_inputs(cfg, params, batch)
+    x, _ = _embed_inputs(cfg, params, batch, sc)
     B, S = x.shape[:2]
     positions = _positions(0, S, x.device)
-    cross_src = _encode(cfg, params, batch, False, impl)
+    cross_src = _encode(cfg, params, batch, False, impl, sc)
     enc_len = 0 if cross_src is None else cross_src.shape[1]
-    caches = init_cache(cfg, B, max_len, x.device, enc_len)
+    caches = sc(init_cache(cfg, B, max_len, x.device, enc_len), "cache")
     x, caches, _ = _stack(cfg, params, x, positions, caches, 0,
-                          decode=False, impl=impl, cross_src=cross_src)
+                          decode=False, impl=impl, cross_src=cross_src, sc=sc)
     caches["pos"] = S
-    x = L.rms_norm(x[:, -1:], params.final_norm, cfg.norm_eps)
-    return x @ params.lm_head, caches
+    x = L.rms_norm(sc(x, "block_in")[:, -1:], params.final_norm,
+                   cfg.norm_eps)
+    return sc(x @ sc(params.lm_head, "params"), "logits"), caches
 
 
 def decode_step(cfg: ModelConfig, params: Transformer, caches: Dict,
-                tokens: torch.Tensor):
+                tokens: torch.Tensor, sc=L.no_sc):
     """One serving step: tokens (B, 1) -> (logits (B, 1, V), caches).  The
     caches are updated in place and returned; cross-attention reads the
     cross caches prefill wrote."""
-    x = params.embed[tokens]
+    x = sc(L.embed_lookup(sc(params.embed, "params"), tokens), "residual")
     pos = caches["pos"]
     positions = _positions(pos, tokens.shape[1], x.device)
     x, caches, _ = _stack(cfg, params, x, positions, caches, pos,
-                          decode=True)
+                          decode=True, sc=sc)
     caches["pos"] = pos + tokens.shape[1]
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
-    return x @ params.lm_head, caches
+    return sc(x @ sc(params.lm_head, "params"), "logits"), caches
+
+
+# ---------------------------------------------------------------------------
+# Shapes in the reference's layout (for the sharding rules)
+# ---------------------------------------------------------------------------
+
+
+def _tree_insert(tree: Dict, parts, value) -> None:
+    for part in parts[:-1]:
+        tree = tree.setdefault(part, {})
+    tree[parts[-1]] = value
+
+
+def param_shapes(cfg_or_params) -> Dict:
+    """The reference's ``param_shapes`` tree: each parameter's shape
+    (``torch.Size``) in the reference's nested layout, ``layers`` and
+    ``enc_layers`` stacked on a leading layer axis.  Takes a config (the
+    model is built on the meta device, nothing allocated) or a
+    ``Transformer`` (a DTensor parameter gives its global shape)."""
+    params = (cfg_or_params if isinstance(cfg_or_params, nn.Module)
+              else Transformer(cfg_or_params, "meta"))
+    per_key: Dict[str, list] = {}
+    for name, p in params.named_parameters():
+        parts = name.split(".")
+        if parts[0] in ("layers", "enc_layers"):
+            key = ".".join(parts[:1] + parts[2:])
+            per_key.setdefault(key, []).append(tuple(p.shape))
+        else:
+            per_key[name] = [None, tuple(p.shape)]
+    tree: Dict = {}
+    for key, shapes in per_key.items():
+        shape = (shapes[1] if shapes[0] is None
+                 else (len(shapes),) + shapes[0])
+        _tree_insert(tree, key.split("."), torch.Size(shape))
+    return tree
+
+
+def cache_shapes(cfg: ModelConfig, B: int, max_len: int,
+                 enc_len: int = 0) -> Dict:
+    """The reference's ``cache_shapes`` tree: ``pos`` a scalar and each
+    per-layer (per-invocation) list stacked on a leading axis, as shapes;
+    nothing allocated."""
+    cache = init_cache(cfg, B, max_len, "meta", enc_len)
+
+    def stack(items):
+        return {name: (stack([it[name] for it in items])
+                       if isinstance(val, dict)
+                       else torch.Size((len(items),) + tuple(val.shape)))
+                for name, val in items[0].items()}
+
+    out = {"pos": torch.Size(()), "layers": stack(cache["layers"])}
+    for part in ("shared", "cross"):
+        if part in cache:
+            out[part] = stack(cache[part])
+    return out
