@@ -102,7 +102,15 @@ sources (one ``nvcc`` each, started together) and then:
    peak memory), runs ``hierarchical_grad_sync`` over qwen3's gradients
    with and without int8, and runs the launcher twice on one dir under
    the group (the second resumes through ``restore(shardings=)``);
-10. prints one JSON line describing every kernel of the path, then, as
+10. holds the dry run's estimator against the card (``dryrun_phase``):
+   the train steps of qwen3-0.6b and granite-moe-1b-a400m (B4 x S1024,
+   one card) traced on meta tensors under ``launch/cost_analysis.py``'s
+   counter and run for real under it, FLOPs equal and the estimated peak
+   memory within 10% of the measured one, the busy time beside the
+   roofline; ``torch.library.opcheck`` on the four kernel operators; one
+   production cell (qwen3-0.6b decode_32k on the fake (16, 16) mesh)
+   through ``python -m repro_torch.launch.dryrun`` in a subprocess;
+11. prints one JSON line describing every kernel of the path, then, as
    the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero.  Without CUDA, or outside a checkout, it
@@ -115,6 +123,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -631,15 +640,18 @@ def flash_timing_phase(torch, fa, arch, inputs, causal=True):
     library_event_ms = time_ms(torch, library)
     library_kernels = kernel_names(torch, library)
 
-    # bound: the pairs this run's positions leave visible, each costing a
-    # QK^T and a PV product (2 FLOP per multiply-add); each input byte
-    # read once and the output written once
+    # bound: the kernel's work (``fa.work``, which the dry run reads too):
+    # the pairs the mask leaves visible, each costing a QK^T and a PV
+    # product (2 FLOP per multiply-add); each input byte read once and the
+    # output written once.  Its pairs are those this run's positions leave
+    # visible, checked against ``fa.visible_pairs`` below.
     visible = (k_pos >= 0)[None, :].expand(S, T)
     if causal:
         visible = visible & (k_pos[None, :] <= q_pos[:, None])
-    flops = 4 * B * Hq * int(visible.sum().item()) * D
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
-        + 4 * (S + T)
+    check(fa.visible_pairs(S, T, 0, causal) == int(visible.sum().item()),
+          f"flash work at {arch}: the positions are not bottom-right")
+    flops, nbytes = fa.work(B, S, T, Hq, k.shape[2], D, causal=causal,
+                            itemsize=q.element_size())
     t_ops = flops / PEAK_FLOPS[str(q.dtype)] * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     bound_ms = max(t_ops, t_bytes)
@@ -755,7 +767,7 @@ def gmm_timing_phase(torch, gm, gen):
     for label, (B, E, C, Dm, Ff) in (("prefill", GMM_PREFILL),
                                      ("decode", GMM_DECODE)):
         for product, (D, F) in (("wi", (Dm, Ff)), ("wo", (Ff, Dm))):
-            nbytes = (B * E * C * D + E * D * F + B * E * C * F) * 2
+            flops, nbytes = gm.work(B, E, C, D, F)
             sets = []
             for _ in range(max(2, -(-4 * int(L2_BYTES) // nbytes))):
                 x = torch.randn((B, E, C, D), generator=gen,
@@ -781,9 +793,9 @@ def gmm_timing_phase(torch, gm, gen):
                 lambda x, w, _: gm.grouped_matmul(x, w, impl="ref")), 5)
             library_ms = device_ms(torch, rotating(
                 lambda _, w, x_em: torch.bmm(x_em, w)))
-            # bound: 2 FLOP per multiply-add; x and w read once, out
+            # bound: the kernels' work (``gm.work``, which the dry run
+            # reads too): 2 FLOP per multiply-add; x and w read once, out
             # written once
-            flops = 2 * B * E * C * D * F
             t_ops = flops / PEAK_FLOPS["torch.bfloat16"] * 1e3
             t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
             bound_ms = max(t_ops, t_bytes)
@@ -887,10 +899,12 @@ def ssd_timing_phase(torch, sd, gen):
     input sets that together exceed the L2 four times, as each layer of a
     prefill meets its inputs cold."""
     B, S, H, P, N = SSD_PREFILL
-    # each input read once, each output written once: xdt and y bf16, a
-    # f32, B and C bf16 (shared by the heads), the f32 final state
-    nbytes = 2 * B * S * H * P * 2 + B * S * H * 4 + 2 * B * S * N * 2 \
-        + B * H * P * N * 4
+    # the kernel's work (``sd.work``, which the dry run reads too): each
+    # input read once, each output written once (xdt and y bf16, a f32, B
+    # and C bf16, shared by the heads, the f32 final state); the
+    # operations of the reference algorithm at its chunk (SSD_CHUNK)
+    flops, nbytes = sd.work(B, S, H, P, N)
+    check(SSD_CHUNK == sd.CHUNK, "ssd: the bound's chunk is not the model's")
     sets = []
     for _ in range(max(2, -(-4 * int(L2_BYTES) // nbytes))):
         a = -(torch.randn((B, S, H), generator=gen, device="cuda")
@@ -916,11 +930,6 @@ def ssd_timing_phase(torch, sd, gen):
     # of its chain of chunks about as long
     row0 = [[t[:1] for t in s] for s in sets]
     ms_row0 = device_ms(torch, rotating("auto", row0))
-    # operations of the reference algorithm at its chunk (scores C B^T and
-    # their product with X per head over whole chunks, the states and the
-    # inter-chunk term), 2 FLOP per multiply-add; independent of the
-    # kernel's own chunk
-    flops = 2 * B * H * S * (SSD_CHUNK * N + SSD_CHUNK * P + 2 * P * N)
     t_ops = flops / PEAK_FLOPS["torch.bfloat16"] * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     bound_ms = max(t_ops, t_bytes)
@@ -1035,10 +1044,12 @@ def wkv_timing_phase(torch, wk, gen):
     Each call takes the next of several input sets that together exceed
     the L2 four times, as each layer of a prefill meets its inputs cold."""
     B, S, H, P = WKV_PREFILL
-    n = B * S * H * P
-    # each input read once, each output written once: r, k, v and y bf16,
-    # w f32, u f32, the initial and the final state f32
-    nbytes = 3 * n * 2 + n * 4 + H * P * 4 + n * 2 + 2 * B * H * P * P * 4
+    # the kernel's work (``wk.work``, which the dry run reads too): each
+    # input read once, each output written once (r, k, v and y bf16, w f32,
+    # u f32, the initial and the final state f32); the operations of the
+    # reference algorithm at its chunk (WKV_CHUNK)
+    flops, nbytes = wk.work(B, S, H, P, init_state=True)
+    check(WKV_CHUNK == wk.CHUNK, "wkv: the bound's chunk is not the model's")
     sets = []
     for _ in range(max(2, -(-4 * int(L2_BYTES) // nbytes))):
         def rnd(shape):
@@ -1063,11 +1074,6 @@ def wkv_timing_phase(torch, wk, gen):
     # time; one bound by the latency of its chain of chunks about as long
     row0 = [[t[:1] if t.dim() == 4 else t for t in s] for s in sets]
     ms_row0 = device_ms(torch, rotating("auto", row0))
-    # operations of the reference algorithm at its chunk, 2 FLOP per
-    # multiply-add: the scores r~ k~^T and their product with v (T x T x P
-    # each), r~ state and the state update (T x P x P each), a chunk
-    T = WKV_CHUNK
-    flops = 2 * B * H * -(-S // T) * (2 * T * T * P + 2 * T * P * P)
     t_ops = flops / PEAK_FLOPS["torch.bfloat16"] * 1e3
     t_f64 = flops / PEAK_FLOPS["torch.float64"] * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -2228,6 +2234,153 @@ def parallel_phase(torch):
     return result
 
 
+DRYRUN_ARCHS = ("qwen3-0.6b", "granite-moe-1b-a400m")
+DRYRUN_PEAK_RTOL = 0.10
+DRYRUN_CELL = ("qwen3-0.6b", "decode_32k")
+DRYRUN_TIMEOUT_S = 300
+
+
+def _opcheck_cases(torch):
+    """Each kernel operator's arguments at a small shape, bf16, on the
+    card."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def t(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    pos = torch.arange(256, dtype=torch.int32, device="cuda")
+    q, k, v = t(2, 256, 4, 64), t(2, 256, 2, 64), t(2, 256, 2, 64)
+    f32 = torch.float32
+    return {
+        "flash_fwd": (q, k, v, pos, pos, 0, True, True),
+        "gmm": (t(2, 4, 64, 128), t(4, 128, 64, scale=0.1)),
+        "ssd": (t(2, 256, 4, 64), -t(2, 256, 4, dtype=f32).abs() * 0.1,
+                t(2, 256, 64), t(2, 256, 64), None),
+        "wkv": (t(2, 64, 4, 64), t(2, 64, 4, 64), t(2, 64, 4, 64),
+                torch.sigmoid(t(2, 64, 4, 64, dtype=f32)) * 0.5 + 0.4,
+                t(4, 64, dtype=f32, scale=0.5),
+                t(2, 4, 64, 64, dtype=f32)),
+    }
+
+
+def dryrun_phase(torch):
+    """The dry run's estimator (``launch/cost_analysis.py``) held against
+    the card.  For each of DRYRUN_ARCHS, one train step (B{TRAIN_B} x
+    S{TRAIN_S}, bf16, one card, no mesh) traced on meta tensors under the
+    counter, then one real step from fresh weights under the same counter
+    and the profiler, its peak memory measured from a reset: the FLOPs
+    must be equal, the estimated peak within DRYRUN_PEAK_RTOL of the
+    measured one (less what was allocated before the model), and the
+    device busy is printed against the roofline max(compute_s, memory_s)
+    of the card's data sheet.  Then ``torch.library.opcheck`` on each
+    kernel operator at a small shape on the card, and one production cell
+    (DRYRUN_CELL on the fake (16, 16) mesh) through
+    ``python -m repro_torch.launch.dryrun`` in a subprocess (the fake
+    group and NCCL cannot share a process)."""
+    from repro_torch.config import H100, OptimizerConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.cost_analysis import CostCounter
+    from repro_torch.steps import (init_train_state, make_train_step,
+                                   train_state_shapes)
+
+    t0 = time.perf_counter()
+    opt_cfg = OptimizerConfig(warmup_steps=1, total_steps=100)
+    out = {}
+    for arch in DRYRUN_ARCHS:
+        free_model(torch)
+        cfg = get_config(arch)
+        step = make_train_step(cfg, opt_cfg)
+        src = SyntheticTokens(cfg, TRAIN_S, TRAIN_B, seed=0)
+        host = src.global_batch_at(0)
+
+        params, opt = train_state_shapes(cfg)
+        params.requires_grad_(True)
+        batch = {k: torch.empty(v.shape, dtype=torch.int32, device="meta")
+                 for k, v in host.items()}
+        est = CostCounter()
+        est.add_arguments(params, opt, batch)
+        t = time.perf_counter()
+        with est:
+            step(params, opt, batch, 0)
+        trace_s = time.perf_counter() - t
+        del params, opt, batch
+
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        params, opt = init_train_state(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        batch = {k: torch.from_numpy(v).to("cuda") for k, v in host.items()}
+        torch.cuda.synchronize()
+        real = CostCounter()
+        real.add_arguments(params, opt, batch)
+
+        def work():
+            with real:
+                step(params, opt, batch, 0)
+
+        busy, n_kernels, _ = profiled_ms(torch, work, cpu=False)
+        peak = torch.cuda.max_memory_allocated() - base
+        del params, opt, batch
+        est_peak = est.memory()["peak_bytes"]
+        gap = est_peak / peak - 1
+        roof = {"compute_ms": est.flops / H100.peak_flops * 1e3,
+                "memory_ms": est.bytes / H100.hbm_bw * 1e3}
+        print(f"dryrun phase, {arch} train step B{TRAIN_B} S{TRAIN_S}: "
+              f"traced on meta in {trace_s:.2f} s: {est.flops / 1e12:.4f} "
+              f"TFLOP, {est.bytes / 1e9:.3f} GB moved, peak "
+              f"{est_peak / 1e9:.3f} GB (arguments "
+              f"{est.argument_bytes / 1e9:.3f}), kernels {est.kernels}")
+        print(f"  on the card: {real.flops / 1e12:.4f} TFLOP (equal: "
+              f"{real.flops == est.flops}), peak allocated "
+              f"{peak / 1e9:.3f} GB (estimate {gap:+.2%}, tol "
+              f"{DRYRUN_PEAK_RTOL:.0%}), busy {busy:.3f} ms over "
+              f"{n_kernels} kernels against the roofline "
+              f"{max(roof.values()):.3f} ms (compute {roof['compute_ms']:.3f}"
+              f", memory {roof['memory_ms']:.3f}; data sheet)")
+        check(real.flops == est.flops,
+              f"{arch}: meta and real FLOPs differ ({est.flops} vs "
+              f"{real.flops})")
+        check(abs(gap) <= DRYRUN_PEAK_RTOL,
+              f"{arch}: estimated peak {est_peak} vs measured {peak}")
+        out[arch] = {"flops": est.flops, "bytes": est.bytes,
+                     "est_peak_bytes": est_peak, "peak_bytes": peak,
+                     "peak_gap": gap, "busy_ms": busy,
+                     "roofline_ms": max(roof.values()), **roof,
+                     "trace_s": trace_s}
+    free_model(torch)
+
+    for name, args in _opcheck_cases(torch).items():
+        op = getattr(torch.ops.repro_torch, name).default
+        result = torch.library.opcheck(op, args)
+        print(f"  opcheck repro_torch::{name}: {result}")
+        check(all(v == "SUCCESS" for v in result.values()),
+              f"opcheck repro_torch::{name}: {result}")
+
+    arch, shape = DRYRUN_CELL
+    out_dir = ROOT / "build" / "dryrun"
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--out-dir", str(out_dir)], cwd=ROOT,
+        capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S,
+        env={**os.environ, "PYTHONPATH": str(SRC)})
+    check(proc.returncode == 0,
+          f"dry run of {arch}/{shape} failed: {proc.stderr[-2000:]}")
+    rec = json.loads((out_dir / "16x16" / f"{arch}__{shape}.json")
+                     .read_text())
+    print(f"  dry run {arch}/{shape} on the fake 16x16 mesh "
+          f"({time.perf_counter() - t:.1f} s with the process): peak "
+          f"{rec['memory']['peak_bytes'] / 1e9:.3f} GB a device, "
+          f"{rec['flops'] / 1e9:.3f} GFLOP, roofline {rec['roofline']}, "
+          f"dominant {rec['dominant']}, fits {rec['fits']}")
+    out["cell"] = {k: rec[k] for k in ("arch", "shape", "mesh", "memory",
+                                       "flops", "roofline", "dominant")}
+    print(f"  dryrun phase: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def free_model(torch) -> None:
     """Give the last model's memory back before the next one loads."""
     gc.collect()
@@ -2380,6 +2533,7 @@ def main() -> int:
     frontend_launcher_phase(torch)
     free_model(torch)
     parallel = parallel_phase(torch)
+    dryrun = dryrun_phase(torch)
     sharded_by_path = dict.fromkeys(kernels, 0)
     for arch in PARALLEL_ARCHS:
         got = parallel[arch]["sharded_launches"]
@@ -2434,6 +2588,9 @@ def main() -> int:
                               k: parallel["qwen3-0.6b"][k]
                               for k in ("sharded", "plain", "losses")},
                           "grad_sync": parallel["grad_sync"]},
+        # the dry run's estimate of two train steps against the card, and
+        # one production cell traced on the fake (16, 16) mesh
+        "dryrun": dryrun,
     }, {
         "name": "moe_gmm",
         "route": "cuda",

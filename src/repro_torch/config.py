@@ -1,17 +1,20 @@
 """Configuration: the port's own copy of ``repro.config``'s ``ModelConfig``,
-``ShapeSpec``, ``SHAPES``, ``OptimizerConfig`` and ``MeshConfig``.
+``ShapeSpec``, ``SHAPES``, ``Cell``, ``cells_for``, ``OptimizerConfig``
+and ``MeshConfig``, and the hardware model of the dry run.
 
 Fields and defaults are copied field for field, so a configuration file
-reads the same in both packages; only the derived values the port uses
-(``head_dim``, ``vocab_padded``, ``is_encdec``, ``d_inner``,
-``ssm_heads``, ``rwkv_heads``) are carried over.  The runtime and
-hardware configs belong to later slices.
+reads the same in both packages; so are the derived values
+(``head_dim``, ``vocab_padded``, ``is_encdec``, ``subquadratic``,
+``layer_kinds``, ``d_inner``, ``ssm_heads``, ``rwkv_heads``,
+``param_count``, ``active_param_count``) and the cell rules.  The
+reference's ``RuntimeConfig`` has no counterpart (the port reads no field
+of it), and its TPU ``HardwareSpec`` is replaced by ``H100``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 
 def pad_to(x: int, m: int) -> int:
@@ -83,6 +86,23 @@ class ModelConfig:
         return self.n_enc_layers > 0
 
     @property
+    def subquadratic(self) -> bool:
+        """True if long-context decode is feasible (assignment rule for
+        long_500k: SSM / hybrid / sliding-window archs only)."""
+        kinds = set(self.layer_kinds())
+        if kinds <= {"mamba2", "rwkv6"}:
+            return True
+        if self.sliding_window > 0:
+            return True
+        if "mamba2" in kinds or "rwkv6" in kinds:
+            return True   # hybrid: attention cache exists but SSM dominates
+        return False
+
+    def layer_kinds(self) -> Tuple[str, ...]:
+        pat = self.block_pattern
+        return tuple(pat[i % len(pat)] for i in range(self.n_layers))
+
+    @property
     def d_inner(self) -> int:
         """Mamba2 inner width."""
         return self.ssm_expand * self.d_model
@@ -94,6 +114,62 @@ class ModelConfig:
     @property
     def rwkv_heads(self) -> int:
         return self.d_model // self.rwkv_head_dim
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding + blocks + head)."""
+        d, v = self.d_model, self.vocab_padded
+        total = v * d                      # embedding
+        total += v * d                     # lm head (untied)
+        total += d                         # final norm
+        hd = self.head_dim
+        for kind in self.layer_kinds():
+            if kind in ("attn", "moe"):
+                attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) \
+                    + (self.n_heads * hd) * d
+                if self.qk_norm:
+                    attn += 2 * hd
+                total += attn + 2 * d      # block norms
+                if kind == "attn":
+                    total += 3 * d * self.d_ff
+                else:
+                    total += self.n_experts * 3 * d * self.moe_d_ff \
+                        + d * self.n_experts           # router
+            elif kind == "mamba2":
+                di, ns, nh = self.d_inner, self.ssm_state, self.ssm_heads
+                total += d * (2 * di + 2 * ns + nh)    # in_proj (z,x,B,C,dt)
+                total += (di + 2 * ns) * self.ssm_conv  # conv
+                total += 2 * nh + di                   # A_log, D, dt_bias? (nh,nh,di gate norm)
+                total += di * d                        # out_proj
+                total += d                             # block norm
+            elif kind == "rwkv6":
+                total += 6 * d * d                     # r,k,v,w,g,out projections
+                total += 2 * d * self.d_ff             # channel mix (k,v)...
+                total += 8 * d                         # decay/bonus/mix params (approx)
+                total += 2 * d                         # norms
+        if self.shared_attn_every:
+            hd2 = self.head_dim
+            total += self.d_model * (self.n_heads * hd2) * 2 \
+                + 2 * self.d_model * (self.n_kv_heads * hd2) \
+                + 3 * self.d_model * self.d_ff + 2 * self.d_model
+        if self.is_encdec:
+            # encoder blocks (attn + mlp) + decoder cross-attn already counted
+            enc = self.n_enc_layers * (
+                4 * d * d + 3 * d * self.d_ff + 2 * d)
+            cross = self.n_layers * (4 * d * d + d)
+            total += enc + cross
+        if self.frontend != "none":
+            total += self.frontend_dim * d
+        return total
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only active experts)."""
+        if self.n_experts == 0:
+            return self.param_count()
+        total = self.param_count()
+        moe_layers = sum(1 for k in self.layer_kinds() if k == "moe")
+        inactive = self.n_experts - self.n_experts_active
+        total -= moe_layers * inactive * 3 * self.d_model * self.moe_d_ff
+        return total
 
 
 @dataclass(frozen=True)
@@ -110,6 +186,26 @@ SHAPES: Dict[str, ShapeSpec] = {
     "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
     "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
 }
+
+
+@dataclass(frozen=True)
+class Cell:
+    arch: str
+    shape: ShapeSpec
+
+    @property
+    def key(self) -> str:
+        return f"{self.arch}/{self.shape.name}"
+
+
+def cells_for(cfg: ModelConfig) -> List[ShapeSpec]:
+    """Assignment skip rules (documented in DESIGN.md section 4):
+    long_500k only for sub-quadratic archs; decode shapes for all archs
+    here (every assigned arch has a decoder)."""
+    out = [SHAPES["train_4k"], SHAPES["prefill_32k"], SHAPES["decode_32k"]]
+    if cfg.subquadratic:
+        out.append(SHAPES["long_500k"])
+    return out
 
 
 @dataclass(frozen=True)
@@ -149,3 +245,24 @@ class MeshConfig:
     def n_devices(self) -> int:
         n = self.data * self.model
         return n * self.pods if self.multi_pod else n
+
+
+@dataclass(frozen=True)
+class HardwareSpec:
+    """One accelerator of a mesh, for the dry run's roofline."""
+    name: str
+    peak_flops: float        # dense bf16 FLOP/s
+    hbm_bw: float            # bytes/s
+    hbm_bytes: float
+    nvlink_bw: float         # bytes/s each way, to a GPU of the same node
+    gpus_per_node: int
+    network_bw: float        # bytes/s each way, to a GPU of another node
+
+
+# NVIDIA H100 SXM5 80 GB at its 700 W limit, data-sheet figures: dense
+# bf16 tensor-core peak, HBM3 rate and size, NVLink 4 (900 GB/s both ways
+# together), 8 GPUs a node as in a DGX H100, and one 400 Gb/s NDR
+# InfiniBand port a GPU for traffic between nodes.
+H100 = HardwareSpec(name="h100_sxm5_80gb", peak_flops=989e12,
+                    hbm_bw=3.35e12, hbm_bytes=80e9, nvlink_bw=450e9,
+                    gpus_per_node=8, network_bw=50e9)

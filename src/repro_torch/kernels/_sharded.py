@@ -303,12 +303,14 @@ def cache_write(cache, k, v, cache_pos: int) -> None:
     t_l = Tc // _n(mesh, seq)
     lo = _offset(mesh, seq) * t_l
     Lw = min(S, Tc)
-    slots = (cache_pos + S - Lw + torch.arange(Lw, device=k.device)) % Tc
+    # the slots depend on the positions alone: computed on the host, so a
+    # meta cache (the dry run) takes the same path
+    slots = (cache_pos + S - Lw + torch.arange(Lw)) % Tc
     mine = ((slots >= lo) & (slots < lo + t_l)).nonzero()[:, 0]
+    dst, src = (slots[mine] - lo).to(k.device), mine.to(k.device)
     for buf, new in ((ck, k), (cache["v"], v)):
         local = buf.to_local()
-        local.index_copy_(1, slots[mine] - lo,
-                          new[:, S - Lw:].index_select(1, mine)
+        local.index_copy_(1, dst, new[:, S - Lw:].index_select(1, src)
                           .to(local.dtype))
 
 

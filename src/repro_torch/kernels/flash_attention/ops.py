@@ -16,6 +16,13 @@ aligned bases and strides; ``tma_strides`` says whether a tensor meets
 that, and ``tma_operands`` hands the kernel a contiguous copy of one that
 does not (never the plain version).
 
+The kernel is the operator ``torch.ops.repro_torch.flash_fwd``: its CUDA
+implementation launches the kernel, and its fake (also its meta)
+implementation gives the outputs' shapes and dtypes, so a meta tensor (the
+dry run) reaches the kernel's shape function, never the kernel or the
+plain version.  ``work`` is the kernel's work count (FLOPs and bytes),
+which the operator's FLOP formula, the dry run and the card's bound read.
+
 ``launches`` counts the kernel launches this process made.
 """
 
@@ -25,7 +32,9 @@ import ctypes
 import functools
 from pathlib import Path
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import _build, _sharded
 from .ref import attention_ref, flash_bwd_ref
@@ -162,6 +171,71 @@ def _launch(q, k, v, q_pos, k_pos, window: int, causal: bool,
     return (out, lse) if want_lse else out
 
 
+@functools.lru_cache(maxsize=None)
+def visible_pairs(S: int, T: int, window: int, causal: bool) -> int:
+    """The (query, key) pairs the mask leaves visible, per batch row and
+    head, with the causal mask aligned bottom-right (query i at position
+    T - S + i, key j at j), as the model builds the positions."""
+    if not causal:
+        return S * T
+    q_pos = np.arange(S, dtype=np.int64) + (T - S)
+    hi = np.minimum(q_pos, T - 1)
+    lo = np.maximum(q_pos - window + 1, 0) if window else 0
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def work(B: int, S: int, T: int, Hq: int, Hkv: int, D: int, *,
+         window: int = 0, causal: bool = True, itemsize: int = 2,
+         want_lse: bool = False) -> tuple[int, int]:
+    """(FLOPs, bytes) of one call: a QK^T and a PV product for every
+    visible pair, 2 FLOP per multiply-add; q, k, v and both positions read
+    once, the output (and the f32 lse) written once."""
+    flops = 4 * B * Hq * visible_pairs(S, T, window, causal) * D
+    nbytes = (2 * B * S * Hq * D + 2 * B * T * Hkv * D) * itemsize \
+        + 4 * (S + T) + (4 * B * Hq * S if want_lse else 0)
+    return flops, nbytes
+
+
+def op_work(q, k, v, q_pos, k_pos, window, causal, want_lse
+            ) -> tuple[int, int]:
+    """``work`` of one ``flash_fwd`` call, from its arguments."""
+    B, S, Hq, D = q.shape
+    return work(B, S, k.shape[1], Hq, k.shape[2], D, window=window,
+                causal=causal, itemsize=q.element_size(), want_lse=want_lse)
+
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("flash_fwd(Tensor q, Tensor k, Tensor v, Tensor q_pos, "
+            "Tensor k_pos, int window, bool causal, bool want_lse) "
+            "-> (Tensor, Tensor)")
+
+
+def _flash_cuda(q, k, v, q_pos, k_pos, window, causal, want_lse):
+    if want_lse:
+        return _launch(q, k, v, q_pos, k_pos, window, causal, True)
+    out = _launch(q, k, v, q_pos, k_pos, window, causal)
+    return out, out.new_empty((0,), dtype=torch.float32)
+
+
+_LIB.impl("flash_fwd", _flash_cuda, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::flash_fwd", lib=_LIB)
+def _flash_fake(q, k, v, q_pos, k_pos, window, causal, want_lse):
+    B, S, Hq, D = q.shape
+    if k.dim() != 4 or k.shape[0] != B or k.shape[3] != D \
+            or v.shape != k.shape or Hq % k.shape[2]:
+        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} do not agree")
+    lse = (B, Hq, S) if want_lse else (0,)
+    return q.new_empty((B, S, Hq, D)), q.new_empty(lse, dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_fwd, get_raw=True)
+def _flash_flops(*args, out_val=None, **kwargs) -> int:
+    return op_work(*args, **kwargs)[0]
+
+
 def _forward(q, k, v, q_pos, k_pos, window: int, causal: bool, impl: str,
              want_lse: bool):
     if impl == "ref" or (impl == "auto" and q.device.type == "cpu"):
@@ -169,7 +243,9 @@ def _forward(q, k, v, q_pos, k_pos, window: int, causal: bool, impl: str,
                              return_lse=want_lse)
     if impl != "auto":
         raise ValueError(f"unknown impl {impl!r}; expected auto | ref")
-    return _launch(q, k, v, q_pos, k_pos, window, causal, want_lse)
+    out, lse = torch.ops.repro_torch.flash_fwd(q, k, v, q_pos, k_pos,
+                                               window, causal, want_lse)
+    return (out, lse) if want_lse else out
 
 
 class FlashAttention(torch.autograd.Function):

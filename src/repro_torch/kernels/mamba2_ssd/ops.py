@@ -14,6 +14,14 @@ strides.
 Under autograd (``SSD``) the forward is the kernel and the backward the
 gradients of the plain version, recomputed from the saved inputs.
 
+The kernel is the operator ``torch.ops.repro_torch.ssd``: its CUDA
+implementation launches the kernel, and its fake (also its meta)
+implementation gives y's and the final state's shapes and dtypes, so a
+meta tensor (the dry run) reaches the kernel's shape function, never the
+kernel or the plain version.  ``work`` is the kernel's work count (FLOPs
+and bytes), which the operator's FLOP formula, the dry run and the card's
+bound read.
+
 ``launches`` counts the kernel launches this process made.
 """
 
@@ -25,10 +33,11 @@ from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import _build, _sharded
 from .._replay import replay_grads
-from .ref import ssd_ref
+from .ref import CHUNK, ssd_ref
 
 launches = 0
 
@@ -131,12 +140,62 @@ def _launch(xdt, a, Bm, Cm, init_state):
     return y, state
 
 
+def work(B: int, S: int, H: int, P: int, N: int, itemsize: int = 2,
+         init_state: bool = False) -> tuple[int, int]:
+    """(FLOPs, bytes) of one call.  FLOPs are the reference algorithm's at
+    the reference model's chunk (``CHUNK``; the scores C B^T and their
+    product with X per head over whole chunks, the states and the
+    inter-chunk term), 2 FLOP per multiply-add, whatever the kernel's own
+    chunk.  Bytes: xdt and y in ``itemsize``, a f32, B and C (shared by the
+    heads), the f32 final state (and initial state) each read or written
+    once."""
+    flops = 2 * B * H * S * (CHUNK * N + CHUNK * P + 2 * P * N)
+    nbytes = 2 * B * S * H * P * itemsize + B * S * H * 4 \
+        + 2 * B * S * N * itemsize + B * H * P * N * 4 * (1 + init_state)
+    return flops, nbytes
+
+
+def op_work(xdt, a, Bm, Cm, init_state) -> tuple[int, int]:
+    """``work`` of one ``ssd`` call, from its arguments."""
+    B, S, H, P = xdt.shape
+    return work(B, S, H, P, Bm.shape[2], xdt.element_size(),
+                init_state is not None)
+
+
+def _ssd_cuda(xdt, a, Bm, Cm, init_state):
+    return _launch(xdt, a, Bm, Cm, init_state)
+
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("ssd(Tensor xdt, Tensor a, Tensor Bm, Tensor Cm, "
+            "Tensor? init_state) -> (Tensor, Tensor)")
+_LIB.impl("ssd", _ssd_cuda, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::ssd", lib=_LIB)
+def _ssd_fake(xdt, a, Bm, Cm, init_state):
+    B, S, H, P = xdt.shape
+    N = Bm.shape[2]
+    if tuple(a.shape) != (B, S, H) or tuple(Bm.shape) != (B, S, N) \
+            or Cm.shape != Bm.shape:
+        raise ValueError(f"shapes xdt {tuple(xdt.shape)} a {tuple(a.shape)} "
+                         f"B {tuple(Bm.shape)} C {tuple(Cm.shape)} do not "
+                         "agree")
+    return (xdt.new_empty((B, S, H, P)),
+            xdt.new_empty((B, H, P, N), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd, get_raw=True)
+def _ssd_flops(*args, out_val=None) -> int:
+    return op_work(*args)[0]
+
+
 def _forward(xdt, a, Bm, Cm, init_state, impl: str):
     if impl == "ref" or (impl == "auto" and xdt.device.type == "cpu"):
         return ssd_ref(xdt, a, Bm, Cm, init_state)
     if impl != "auto":
         raise ValueError(f"unknown impl {impl!r}; expected auto | ref")
-    return _launch(xdt, a, Bm, Cm, init_state)
+    return torch.ops.repro_torch.ssd(xdt, a, Bm, Cm, init_state)
 
 
 class SSD(torch.autograd.Function):

@@ -22,6 +22,15 @@ Under autograd (``GroupedMatmul``) the forward is the kernel and the
 backward plain PyTorch (``gmm_bwd_ref``): the weights' gradients are
 read from x and dy, and never as a transposed view through the kernel.
 
+The kernels are the operator ``torch.ops.repro_torch.gmm``: its CUDA
+implementation launches one, and its fake (also its meta) implementation
+gives the output's shape and dtype, so a meta tensor (the dry run) reaches
+the kernels' shape function, never a kernel or the plain version.  The
+operator is registered through ``torch.library.Library``, whose dispatch
+costs the host less than a ``custom_op``'s.  ``work`` is the kernels' work
+count (FLOPs and bytes), which the operator's FLOP formula, the dry run
+and the card's bound read.
+
 ``launches`` counts the kernel launches this process made;
 ``last_kernel`` names the kernel the last launch ran.
 """
@@ -34,6 +43,7 @@ from collections import OrderedDict
 from pathlib import Path
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import _build, _sharded
 from .ref import gmm_ref
@@ -207,12 +217,50 @@ def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out if x.dim() == 4 else out[0]
 
 
+def work(B: int, E: int, C: int, D: int, F: int, itemsize: int = 2
+         ) -> tuple[int, int]:
+    """(FLOPs, bytes) of one call on x (B,E,C,D) and w (E,D,F): 2 FLOP per
+    multiply-add; x and w read once, the output written once."""
+    return (2 * B * E * C * D * F,
+            (B * E * C * D + E * D * F + B * E * C * F) * itemsize)
+
+
+def op_work(x, w) -> tuple[int, int]:
+    """``work`` of one ``gmm`` call, from its arguments."""
+    B = x.shape[0] if x.dim() == 4 else 1
+    E, C, D = x.shape[-3:]
+    return work(B, E, C, D, w.shape[2], x.element_size())
+
+
+def _gmm_cuda(x, w):
+    return _launch(x, w)
+
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("gmm(Tensor x, Tensor w) -> Tensor")
+_LIB.impl("gmm", _gmm_cuda, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::gmm", lib=_LIB)
+def _gmm_fake(x, w):
+    if x.dim() not in (3, 4) or w.dim() != 3 \
+            or tuple(w.shape[:2]) != tuple(x.shape[-3::2]):
+        raise ValueError(f"need x (E,C,D) or (B,E,C,D) and w (E,D,F) that "
+                         f"agree, got x {tuple(x.shape)} w {tuple(w.shape)}")
+    return x.new_empty(tuple(x.shape[:-1]) + (w.shape[2],))
+
+
+@register_flop_formula(torch.ops.repro_torch.gmm, get_raw=True)
+def _gmm_flops(x, w, out_val=None) -> int:
+    return op_work(x, w)[0]
+
+
 def _forward(x: torch.Tensor, w: torch.Tensor, impl: str) -> torch.Tensor:
     if impl == "ref" or (impl == "auto" and x.device.type == "cpu"):
         return gmm_ref(x, w)
     if impl != "auto":
         raise ValueError(f"unknown impl {impl!r}; expected auto | ref")
-    return _launch(x, w)
+    return torch.ops.repro_torch.gmm(x, w)
 
 
 def gmm_bwd_ref(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor

@@ -15,6 +15,14 @@ initial state.  r, k, v and w are read in place through their strides.
 Under autograd (``WKV``) the forward is the kernel and the backward the
 gradients of the plain version (f64), recomputed from the saved inputs.
 
+The kernel is the operator ``torch.ops.repro_torch.wkv``: its CUDA
+implementation launches the kernel, and its fake (also its meta)
+implementation gives y's and the final state's shapes and dtypes, so a
+meta tensor (the dry run) reaches the kernel's shape function, never the
+kernel or the plain version.  ``work`` is the kernel's work count (FLOPs
+and bytes), which the operator's FLOP formula, the dry run and the card's
+bound read.
+
 ``launches`` counts the kernel launches this process made.
 """
 
@@ -26,10 +34,11 @@ from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import _build, _sharded
 from .._replay import replay_grads
-from .ref import wkv_ref
+from .ref import CHUNK, wkv_ref
 
 launches = 0
 
@@ -147,12 +156,60 @@ def _launch(r, k, v, w, u, init_state):
     return y, state
 
 
+def work(B: int, S: int, H: int, P: int, itemsize: int = 2,
+         init_state: bool = False) -> tuple[int, int]:
+    """(FLOPs, bytes) of one call.  FLOPs are the reference algorithm's at
+    the reference model's chunk (``CHUNK``), 2 FLOP per multiply-add: the
+    scores r~ k~^T and their product with v (T x T x P each), r~ state and
+    the state update (T x P x P each), a chunk.  Bytes: r, k, v and y in
+    ``itemsize``, w and u f32, the f32 final state (and initial state)
+    each read or written once."""
+    T, n = CHUNK, B * S * H * P
+    flops = 2 * B * H * -(-S // T) * (2 * T * T * P + 2 * T * P * P)
+    nbytes = 4 * n * itemsize + n * 4 + H * P * 4 \
+        + B * H * P * P * 4 * (1 + init_state)
+    return flops, nbytes
+
+
+def op_work(r, k, v, w, u, init_state) -> tuple[int, int]:
+    """``work`` of one ``wkv`` call, from its arguments."""
+    B, S, H, P = r.shape
+    return work(B, S, H, P, r.element_size(), init_state is not None)
+
+
+def _wkv_cuda(r, k, v, w, u, init_state):
+    return _launch(r, k, v, w, u, init_state)
+
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("wkv(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, "
+            "Tensor? init_state) -> (Tensor, Tensor)")
+_LIB.impl("wkv", _wkv_cuda, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::wkv", lib=_LIB)
+def _wkv_fake(r, k, v, w, u, init_state):
+    B, S, H, P = r.shape
+    if any(t.shape != r.shape for t in (k, v, w)) \
+            or tuple(u.shape) != (H, P):
+        raise ValueError(f"shapes r {tuple(r.shape)} k {tuple(k.shape)} v "
+                         f"{tuple(v.shape)} w {tuple(w.shape)} u "
+                         f"{tuple(u.shape)} do not agree")
+    return (r.new_empty((B, S, H, P)),
+            r.new_empty((B, H, P, P), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.wkv, get_raw=True)
+def _wkv_flops(*args, out_val=None) -> int:
+    return op_work(*args)[0]
+
+
 def _forward(r, k, v, w, u, init_state, impl: str):
     if impl == "ref" or (impl == "auto" and r.device.type == "cpu"):
         return wkv_ref(r, k, v, w, u, init_state)
     if impl != "auto":
         raise ValueError(f"unknown impl {impl!r}; expected auto | ref")
-    return _launch(r, k, v, w, u, init_state)
+    return torch.ops.repro_torch.wkv(r, k, v, w, u, init_state)
 
 
 class WKV(torch.autograd.Function):

@@ -30,6 +30,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import _sharded
@@ -42,6 +43,54 @@ NEG_INF = -1e30
 def no_sc(x, kind: Optional[str] = None):
     """The sharding hook without rules: the identity."""
     return x
+
+
+def split_heads(x: torch.Tensor, *shape: int) -> torch.Tensor:
+    """``x.reshape(*shape)``, where the last two sizes of ``shape`` split
+    x's last dim into (heads, head_dim).  A DTensor whose last dim is
+    split over mesh dims whose sizes do not divide the head count is first
+    gathered on those (the reference's rule: a head count that does not
+    divide its axis stays replicated); DTensor cannot reshape a split that
+    falls inside a head."""
+    if _sharded.is_sharded(x):
+        heads, last = shape[-2], x.ndim - 1
+        keep, n = [], 1
+        for i, pl in enumerate(x.placements):
+            if isinstance(pl, Shard) and pl.dim == last:
+                size = x.device_mesh.size(i)
+                if heads % (n * size):
+                    pl = Replicate()
+                else:
+                    n *= size
+            keep.append(pl)
+        if keep != list(x.placements):
+            x = x.redistribute(x.device_mesh, keep)
+    return x.reshape(*shape)
+
+
+class _MergeHeads(torch.autograd.Function):
+    """A DTensor's (..., heads, head_dim) flattened to (..., width), whose
+    gradient goes back through ``split_heads``: the gradient may arrive
+    split over a mesh dim that does not divide the heads (DTensor picks
+    its layout), where a plain reshape's backward would raise."""
+
+    @staticmethod
+    def forward(ctx, x, shape):
+        ctx.in_shape = tuple(x.shape)
+        return x.reshape(shape)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return split_heads(grad, *ctx.in_shape), None
+
+
+def merge_heads(x: torch.Tensor, *shape: int) -> torch.Tensor:
+    """``x.reshape(*shape)``, the last two dims of x (heads, head_dim)
+    flattened into the last of ``shape``; a DTensor's gradient is split
+    back by ``split_heads``."""
+    if _sharded.is_sharded(x):
+        return _MergeHeads.apply(x, shape)
+    return x.reshape(*shape)
 
 
 def _param(shape, device, dtype) -> nn.Parameter:
@@ -245,14 +294,14 @@ def multihead_attention(
     softmax over the cross cache for cross-attention.
     """
     B, S, _ = x.shape
-    q = (x @ p.wq).reshape(B, S, n_heads, d_head)
+    q = split_heads(x @ p.wq, B, S, n_heads, d_head)
     if is_cross and decode:
         k, v = cache["k"], cache["v"]
     else:
         src = x if kv_src is None else kv_src
         T = src.shape[1]
-        k = (src @ p.wk).reshape(B, T, n_kv, d_head)
-        v = (src @ p.wv).reshape(B, T, n_kv, d_head)
+        k = split_heads(src @ p.wk, B, T, n_kv, d_head)
+        v = split_heads(src @ p.wv, B, T, n_kv, d_head)
         if qk_norm:
             q = rms_norm(q, p.q_norm, eps)
             k = rms_norm(k, p.k_norm, eps)
@@ -292,7 +341,7 @@ def multihead_attention(
         out = flash_attention_fwd(q, k, v, positions, k_pos, window=window,
                                   causal=causal, impl=impl)
         out = sc(out, "heads")
-    return out.reshape(B, S, n_heads * d_head) @ p.wo, cache
+    return merge_heads(out, B, S, n_heads * d_head) @ p.wo, cache
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,8 @@ from torch import nn
 
 from ..kernels.mamba2_ssd import ops
 from ..kernels.mamba2_ssd.ref import CHUNK, ssd_ref
-from .layers import _param, dense_init_, no_sc, rms_norm
+from .layers import (_param, dense_init_, merge_heads, no_sc, rms_norm,
+                     split_heads)
 
 
 class Mamba2(nn.Module):
@@ -132,13 +133,13 @@ def mamba2_forward(
     dt = F.softplus(dt.float() + p.dt_bias)                    # (B,S,H)
     A = -torch.exp(p.A_log)                                     # (H,)
     a = dt * A                                                  # log decay
-    xh = xin.reshape(B, S, n_heads, head_dim)
+    xh = split_heads(xin, B, S, n_heads, head_dim)
     xdt = sc((xh.float() * dt[..., None]).to(x.dtype), "heads")
 
     y, final_state = ops.ssd(xdt, a, Bmat.to(x.dtype), Cmat.to(x.dtype),
                              ssm_state, impl=impl)
     y = y + xh * p.D[None, None, :, None].to(x.dtype)
-    y = y.reshape(B, S, d_inner)
+    y = merge_heads(y, B, S, d_inner)
 
     # gated RMSNorm then output projection
     y = rms_norm(y * F.silu(z), p.norm_w, eps)
@@ -166,7 +167,7 @@ def mamba2_decode_step(
     dt = F.softplus(dt.float() + p.dt_bias)[:, 0]             # (B,H)
     A = -torch.exp(p.A_log)
     decay = torch.exp(dt * A)                                   # (B,H)
-    xh = xin.reshape(B, n_heads, head_dim).float()
+    xh = split_heads(xin, B, n_heads, head_dim).float()
     Bv = Bmat[:, 0].float()                                     # (B,N)
     Cv = Cmat[:, 0].float()
 
@@ -175,7 +176,7 @@ def mamba2_decode_step(
     new_state = ssm_state * decay[..., None, None] + upd.to(ssm_state.dtype)
     y = torch.einsum("bhpn,bn->bhp", new_state.float(), Cv)
     y = y + xh * p.D[None, :, None]
-    y = y.reshape(B, 1, d_inner).to(x.dtype)
+    y = merge_heads(y, B, 1, d_inner).to(x.dtype)
 
     y = rms_norm(y * F.silu(z), p.norm_w, eps)
     return y @ p.out_proj, new_state, new_conv_state

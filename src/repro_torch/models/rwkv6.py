@@ -30,7 +30,7 @@ from torch import nn
 
 from ..kernels.rwkv6_wkv import ops
 from ..kernels.rwkv6_wkv.ref import MAX_DECAY_RATE
-from .layers import _param, dense_init_, no_sc
+from .layers import _param, dense_init_, merge_heads, no_sc, split_heads
 
 LORA_DIM = 64
 
@@ -95,11 +95,11 @@ def _group_norm_heads(x: torch.Tensor, weight: torch.Tensor, n_heads: int,
                       eps: float = 1e-5) -> torch.Tensor:
     """Per-head LayerNorm (RWKV's ln_x): population variance, in f32."""
     B, S, D = x.shape
-    xh = x.reshape(B, S, n_heads, D // n_heads).float()
+    xh = split_heads(x, B, S, n_heads, D // n_heads).float()
     mean = xh.mean(dim=-1, keepdim=True)
     var = xh.var(dim=-1, keepdim=True, unbiased=False)
     y = (xh - mean) * torch.rsqrt(var + eps)
-    return (y.reshape(B, S, D) * weight.float()).to(x.dtype)
+    return (merge_heads(y, B, S, D) * weight.float()).to(x.dtype)
 
 
 def _decay(p: RWKV6, xw: torch.Tensor) -> torch.Tensor:
@@ -129,14 +129,14 @@ def rwkv6_time_mix(
     xw = _lerp(x, xs, p.mu_w)
     xg = _lerp(x, xs, p.mu_g)
 
-    r = sc((xr @ p.w_r).reshape(B, S, n_heads, head_dim), "heads")
-    k = sc((xk @ p.w_k).reshape(B, S, n_heads, head_dim), "heads")
-    v = sc((xv @ p.w_v).reshape(B, S, n_heads, head_dim), "heads")
+    r = sc(split_heads(xr @ p.w_r, B, S, n_heads, head_dim), "heads")
+    k = sc(split_heads(xk @ p.w_k, B, S, n_heads, head_dim), "heads")
+    v = sc(split_heads(xv @ p.w_v, B, S, n_heads, head_dim), "heads")
     g = F.silu(xg @ p.w_g)
-    w = sc(_decay(p, xw).reshape(B, S, n_heads, head_dim), "heads")
+    w = sc(split_heads(_decay(p, xw), B, S, n_heads, head_dim), "heads")
 
     y, final_wkv = ops.wkv(r, k, v, w, p.bonus_u, wkv_state, impl=impl)
-    y = _group_norm_heads(y.reshape(B, S, D).to(x.dtype), p.ln_x_w,
+    y = _group_norm_heads(merge_heads(y, B, S, D).to(x.dtype), p.ln_x_w,
                           n_heads)
     out = (y * g) @ p.w_o
     if return_state:
@@ -174,11 +174,11 @@ def rwkv6_time_mix_step(p: RWKV6, x: torch.Tensor,
     xg = _lerp(x, xs, p.mu_g)
 
     f32 = torch.float32
-    r = (xr @ p.w_r).reshape(B, n_heads, head_dim).to(f32)
-    k = (xk @ p.w_k).reshape(B, n_heads, head_dim).to(f32)
-    v = (xv @ p.w_v).reshape(B, n_heads, head_dim).to(f32)
+    r = split_heads(xr @ p.w_r, B, n_heads, head_dim).to(f32)
+    k = split_heads(xk @ p.w_k, B, n_heads, head_dim).to(f32)
+    v = split_heads(xv @ p.w_v, B, n_heads, head_dim).to(f32)
     g = F.silu(xg @ p.w_g)
-    w = _decay(p, xw).reshape(B, n_heads, head_dim)
+    w = split_heads(_decay(p, xw), B, n_heads, head_dim)
 
     state = wkv_state.to(f32)
     kv = k[..., :, None] * v[..., None, :]                  # (B,H,P,P)
@@ -186,7 +186,7 @@ def rwkv6_time_mix_step(p: RWKV6, x: torch.Tensor,
         + torch.einsum("bhp,bhpq->bhq", r, state)
     new_state = state * w[..., None] + kv
 
-    y = y.reshape(B, 1, D).to(x.dtype)
+    y = merge_heads(y, B, 1, D).to(x.dtype)
     y = _group_norm_heads(y, p.ln_x_w, n_heads)
     out = (y * g) @ p.w_o
     return out, x, new_state.to(wkv_state.dtype)

@@ -39,7 +39,7 @@ They are updated in place.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -200,20 +200,21 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 
-def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None,
-               enc_len: int = 0) -> Dict:
-    """Zeroed caches.  Attention: ring buffers of ``max_len`` slots, or the
-    sliding window when that is shorter.  Mamba2: the f32 SSM state and the
-    convolutions' last K-1 inputs in the model's dtype.  RWKV6: the f32
-    WKV state and the two (B, 1, D) shift states in the model's dtype.
-    Encoder-decoder: also each decoder layer's cross-attention K/V of
-    ``enc_len`` slots, which prefill fills and decode only reads."""
+class CacheLeaf(NamedTuple):
+    """A cache leaf's shape and dtype (``cache_layout``)."""
+    shape: torch.Size
+    dtype: torch.dtype
+
+
+def _cache_tree(cfg: ModelConfig, B: int, max_len: int, enc_len: int,
+                leaf) -> Dict:
+    """``init_cache``'s structure with ``leaf(shape, dtype)`` as each
+    leaf."""
     _check_supported(cfg)
-    device = resolve_device(device)
     dtype = _torch_dtype(cfg.dtype)
 
     def zeros(*shape, dt=dtype):
-        return torch.zeros(shape, dtype=dt, device=device)
+        return leaf(torch.Size(shape), dt)
 
     def attn_cache():
         Tc = (min(max_len, cfg.sliding_window) if cfg.sliding_window
@@ -247,6 +248,28 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None,
         cache["cross"] = [{"k": zeros(*shape), "v": zeros(*shape)}
                           for _ in range(cfg.n_layers)]
     return cache
+
+
+def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None,
+               enc_len: int = 0) -> Dict:
+    """Zeroed caches.  Attention: ring buffers of ``max_len`` slots, or the
+    sliding window when that is shorter.  Mamba2: the f32 SSM state and the
+    convolutions' last K-1 inputs in the model's dtype.  RWKV6: the f32
+    WKV state and the two (B, 1, D) shift states in the model's dtype.
+    Encoder-decoder: also each decoder layer's cross-attention K/V of
+    ``enc_len`` slots, which prefill fills and decode only reads."""
+    _check_supported(cfg)
+    device = resolve_device(device)
+    return _cache_tree(cfg, B, max_len, enc_len,
+                       lambda shape, dt: torch.zeros(shape, dtype=dt,
+                                                     device=device))
+
+
+def cache_layout(cfg: ModelConfig, B: int, max_len: int,
+                 enc_len: int = 0) -> Dict:
+    """``init_cache``'s structure with a ``CacheLeaf`` (shape, dtype) as
+    each leaf: nothing allocated, not even on the meta device."""
+    return _cache_tree(cfg, B, max_len, enc_len, CacheLeaf)
 
 
 # ---------------------------------------------------------------------------
@@ -563,7 +586,12 @@ def prefill(cfg: ModelConfig, params: Transformer, batch: Dict,
     positions = _positions(0, S, x.device)
     cross_src = _encode(cfg, params, batch, False, impl, sc)
     enc_len = 0 if cross_src is None else cross_src.shape[1]
-    caches = sc(init_cache(cfg, B, max_len, x.device, enc_len), "cache")
+    if sc is L.no_sc:
+        caches = init_cache(cfg, B, max_len, x.device, enc_len)
+    else:
+        # shapes only: the hook allocates each rank's own shards
+        caches = sc((cache_layout(cfg, B, max_len, enc_len), x.device),
+                    "cache")
     x, caches, _ = _stack(cfg, params, x, positions, caches, 0,
                           decode=False, impl=impl, cross_src=cross_src, sc=sc)
     caches["pos"] = S

@@ -68,6 +68,8 @@ import torch
 from torch import nn
 from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                       distribute_tensor)
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 
 from ..config import ModelConfig, ShapeSpec
 
@@ -514,11 +516,28 @@ class ShardingRules:
             setattr(ns, name, self._gather_module(child))
         return ns
 
-    def place_cache(self, cache: Dict) -> Dict:
-        """The port's cache (``transformer.init_cache``: one dict a layer,
-        invocation or cross-attention, full and the same on every rank) as
-        DTensors under ``cache_specs``, each layer's leaf taking its
-        stacked spec without the layer entry."""
+    def _zeros(self, leaf, placements, device) -> DTensor:
+        """Zeros of ``leaf``'s shape and dtype as a DTensor under
+        ``placements``, each rank allocating only its own shard on
+        ``device``."""
+        shape = torch.Size(leaf.shape)
+        local_shape, _ = compute_local_shape_and_global_offset(
+            shape, self.mesh, placements)
+        local = torch.zeros(local_shape, dtype=leaf.dtype, device=device)
+        stride = [1] * len(shape)          # the whole tensor's, contiguous
+        for d in range(len(shape) - 2, -1, -1):
+            stride[d] = stride[d + 1] * shape[d + 1]
+        return DTensor.from_local(local, self.mesh, placements,
+                                  run_check=False, shape=shape,
+                                  stride=tuple(stride))
+
+    def place_cache(self, cache: Dict, device) -> Dict:
+        """A zeroed cache laid out as ``cache`` (``transformer.init_cache``'s
+        structure: one dict a layer, invocation or cross-attention; its
+        leaves give only shapes and dtypes: ``transformer.cache_layout``)
+        as DTensors under ``cache_specs``, each layer's leaf taking its
+        stacked spec without the layer entry.  Each rank allocates only its
+        own shards, on ``device``."""
         def stack(items):
             return {k: stack([it[k] for it in items]) if isinstance(v, dict)
                     else (len(items),) + tuple(v.shape)
@@ -526,7 +545,8 @@ class ShardingRules:
 
         def place(items, specs):
             return [{k: place([v], specs[k])[0] if isinstance(v, dict)
-                     else self.distribute(v, self.placements(specs[k][1:]))
+                     else self._zeros(v, self.placements(specs[k][1:]),
+                                      device)
                      for k, v in it.items()} for it in items]
 
         parts = [p for p in ("layers", "shared", "cross") if p in cache]
@@ -542,14 +562,14 @@ class ShardingRules:
         """Pin an activation to the mesh (called by the model).  A plain
         tensor is returned as it is.  ``kind="params"`` takes a module (or
         one parameter) and returns it with its leaves gathered over dp;
-        ``kind="cache"`` takes a fresh cache and places it
-        (``place_cache``)."""
+        ``kind="cache"`` takes a pair (a cache of shapes, the device) and
+        returns it zeroed and placed (``place_cache``)."""
         if kind == "params":
             if isinstance(x, nn.Module):
                 return self._gather_module(x)
             return self._gathered(x)
         if kind == "cache":
-            return self.place_cache(x)
+            return self.place_cache(*x)
         if not isinstance(x, DTensor):
             return x
         spec = self.activation_spec(tuple(x.shape), kind)

@@ -1,5 +1,5 @@
-"""Step functions (train / prefill / decode): the port of
-``repro.steps``'s step builders.
+"""Step functions (train / prefill / decode) and dry-run input specs: the
+port of ``repro.steps``.
 
 ``make_train_step`` returns ``train_step(params, opt_state, batch, step)
 -> (params, opt_state, metrics)``; the parameters and the optimizer state
@@ -13,8 +13,16 @@ tensors (the same global batch on every rank) is split over dp by
 ``batch_specs``; the step runs under DTensor's implicit replication (a
 plain tensor made inside the model, such as the positions, counts as
 replicated), and the four kernels run on each rank's local shards
-(``kernels._sharded``).  The reference's donation and dry-run shape
-functions belong to the dry-run slice.
+(``kernels._sharded``).  The reference's donation has no counterpart
+(the train step updates in place).
+
+The dry-run specs (``batch_shapes``, ``decode_state_shapes``,
+``train_state_shapes``) are the ``jax.ShapeDtypeStruct`` analogue: shape
+and dtype, nothing allocated (meta tensors; the cache's leaves are
+``transformer.CacheLeaf``s).  The batch is the reference's dict; the
+caches and the train state are in the port's layout (one module or dict
+a layer), which ``convert`` maps to the reference's stacked tree
+(``transformer.param_shapes``, ``transformer.cache_shapes``).
 """
 
 from __future__ import annotations
@@ -26,7 +34,7 @@ import torch
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import implicit_replication
 
-from .config import ModelConfig, OptimizerConfig
+from .config import ModelConfig, OptimizerConfig, ShapeSpec
 from .models import transformer as T
 from .models.layers import no_sc
 from .optim import adamw_init, adamw_update
@@ -52,11 +60,57 @@ def _shard(rules: Optional[ShardingRules], batch: Dict) -> Dict:
     return rules.shard_batch(batch) if rules is not None else batch
 
 
+# ---------------------------------------------------------------------------
+# Input specs (meta tensors; no allocation)
+# ---------------------------------------------------------------------------
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def batch_shapes(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, torch.Tensor]:
+    """Abstract input batch for a cell (the assignment's ``input_specs``)."""
+    B = shape.global_batch
+    i32, dtype = torch.int32, getattr(torch, cfg.dtype)
+    if shape.kind == "decode":
+        # one new token (the cache is a separate argument)
+        return {"tokens": _meta((B, 1), i32)}
+    S = shape.seq_len
+    batch = {"tokens": _meta((B, S), i32)}
+    if shape.kind == "train":
+        batch["targets"] = _meta((B, S), i32)
+    if cfg.frontend == "vision_stub":
+        # patches replace the leading part of the context window
+        for key in list(batch):
+            batch[key] = _meta((B, S - cfg.n_patches), i32)
+        batch["patches"] = _meta((B, cfg.n_patches, cfg.frontend_dim), dtype)
+    if cfg.frontend == "audio_stub":
+        batch["frames"] = _meta((B, S // cfg.enc_seq_divisor,
+                                 cfg.frontend_dim), dtype)
+    return batch
+
+
+def decode_state_shapes(cfg: ModelConfig, shape: ShapeSpec) -> Dict:
+    """Abstract KV/SSM cache for a decode cell (seq_len tokens resident):
+    ``transformer.cache_layout``, each leaf a ``CacheLeaf`` (shape,
+    dtype), which ``ShardingRules.place_cache`` allocates."""
+    enc_len = shape.seq_len // cfg.enc_seq_divisor if cfg.is_encdec else 0
+    return T.cache_layout(cfg, shape.global_batch, shape.seq_len, enc_len)
+
+
+def train_state_shapes(cfg: ModelConfig) -> Tuple[T.Transformer, Dict]:
+    """Abstract params (a ``Transformer`` on the meta device) and AdamW
+    state."""
+    params = T.Transformer(cfg, "meta")
+    return params, adamw_init(params)
+
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
                     rules: Optional[ShardingRules] = None,
-                    microbatches: int = 1, impl: str = "auto"):
+                    microbatches: int = 1, impl: str = "auto",
+                    accum_dtype: torch.dtype = torch.float32):
     """Returns train_step(params, opt_state, batch, step) ->
         (params, opt_state, metrics).
 
@@ -65,9 +119,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
     order rotates by a stride of 4099 tokens every
     ``gcr_moe_rotate_every`` steps.  ``microbatches > 1`` accumulates gradients
     over batch splits (the batch's leading axis cut into equal consecutive
-    parts, each then split over dp under ``rules``), in f32, and averages
-    them and the loss over the splits: peak activation memory divides by
-    the microbatch count.  Under ``rules`` the gradients are pinned to the
+    parts, each then split over dp under ``rules``), in ``accum_dtype``,
+    and averages them and the loss over the splits: peak activation memory
+    divides by the microbatch count.  Under ``rules`` the gradients are pinned to the
     parameters' placements (the reference's ``_pin``), which sums them
     over dp.  ``impl="ref"`` sends every kernel to its plain version on
     the card (for comparing).  The metrics come back as plain tensors."""
@@ -100,7 +154,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
             if microbatches == 1:
                 loss, metrics, grads = grads_of(params, batch, step)
             else:
-                grads = {name: torch.zeros_like(p, dtype=torch.float32)
+                grads = {name: torch.zeros_like(p, dtype=accum_dtype)
                          for name, p in params.named_parameters()}
                 lsum = torch.zeros((), dtype=torch.float32,
                                    device=params.final_norm.device)
@@ -112,7 +166,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
                             for key, val in batch.items()}
                     loss_j, m_j, g_j = grads_of(params, part, step)
                     for name, g in g_j.items():
-                        grads[name] = grads[name] + g.float()
+                        grads[name] = grads[name] + g.to(accum_dtype)
                     lsum = lsum + loss_j.detach()
                     ms.append(m_j)
                 grads = {name: g / microbatches for name, g in grads.items()}

@@ -107,14 +107,25 @@ def test_attention_ref_is_explicit_and_other_impls_raise():
         ops.flash_attention_fwd(q, k, v, pos, pos, impl="cuda")
 
 
-def test_non_cpu_tensor_never_falls_back_to_plain():
-    """A tensor off the CPU goes to the kernel or raises: here (meta
-    tensors) the wrapper refuses before any build or launch."""
+def test_non_cpu_tensor_never_falls_back_to_plain(monkeypatch):
+    """A tensor off the CPU goes to the kernel's operator, never the plain
+    version: a meta tensor reaches the operator's shape function (no
+    build, no launch), and the kernel itself refuses anything but CUDA
+    tensors."""
     before = ops.launches
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran")
+
+    monkeypatch.setattr(ops, "attention_ref", plain)
     q = torch.empty((1, 8, 2, 64), device="meta")
     pos = torch.empty((8,), dtype=torch.int32, device="meta")
+    out, lse = ops.flash_attention_fwd(q, q, q, pos, pos, return_lse=True)
+    assert (out.device.type, out.shape, out.dtype) == ("meta", q.shape,
+                                                       q.dtype)
+    assert (lse.shape, lse.dtype) == ((1, 2, 8), torch.float32)
     with pytest.raises(ValueError, match="CUDA"):
-        ops.flash_attention_fwd(q, q, q, pos, pos)
+        ops._launch(q, q, q, pos, pos, 0, True)
     assert ops.launches == before
 
 

@@ -75,7 +75,8 @@ def test_port_and_chip_smoke_import_with_jax_and_repro_blocked():
                  "repro_torch.data", "repro_torch.data.pipeline",
                  "repro_torch.checkpoint",
                  "repro_torch.checkpoint.manager", "repro_torch.steps",
-                 "repro_torch.launch.train"):
+                 "repro_torch.launch.train", "repro_torch.launch.dryrun",
+                 "repro_torch.launch.cost_analysis"):
         assert name in names, name
 
 
