@@ -110,7 +110,21 @@ sources (one ``nvcc`` each, started together) and then:
    roofline; ``torch.library.opcheck`` on the four kernel operators; one
    production cell (qwen3-0.6b decode_32k on the fake (16, 16) mesh)
    through ``python -m repro_torch.launch.dryrun`` in a subprocess;
-11. prints one JSON line describing every kernel of the path, then, as
+11. measures the H100 constants of the virtual-time serving engine and
+   runs the paths built on them (``sim_phase``), each in a subprocess:
+   ``python -m repro_torch.serving.calibrate`` (the wall time of one
+   full-width bf16 qwen3-0.6b ``decode_step`` at 1 to 256 active streams,
+   caches prefilled to 640 of 1024 positions, flash once a layer a
+   prefill, fitted by least squares and printed beside
+   ``StepCostModel``'s coded ``t_fixed_ms`` and ``t_tok_ms``; the pinned
+   host-to-device copy rate beside the coded ``thrash_coef``'s
+   derivation); ``python -m repro_torch.launch.serve --fleet-sweep`` with
+   ``none`` and ``gcr`` admission (gcr must give more tok/s at 1,024 and
+   4,096 streams) and ``--cluster`` in subprocesses; and
+   ``python -m repro_torch.examples.train_100m`` for 20 steps on the card
+   (24 flash launches a step, the resumed half at next_batch 10, the
+   held batch's loss falling, each step's wall and peak memory);
+12. prints one JSON line describing every kernel of the path, then, as
    the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero.  Without CUDA, or outside a checkout, it
@@ -399,10 +413,23 @@ def kernel_names(torch, fn) -> list:
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+def sim_flash_shapes():
+    """(label, B, S) of the flash calls on the sim phase's paths, all at
+    qwen3-0.6b's heads (16/8, D128), causal, S = T: train_100m's batch and
+    the decode-step calibration's largest prefill."""
+    from repro_torch.examples import train_100m
+    from repro_torch.serving import calibrate
+
+    return [("train_100m", *train_100m.FULL_BATCH),
+            ("sim calibration prefill", calibrate.STREAMS[-1],
+             calibrate.PROMPT)]
+
+
 def flash_kernel_phase(torch, fa, gen):
     """Every case: kernel vs plain on the same inputs.  Returns the max
-    abs error at the served models' prefill shapes and the inputs of each
-    of those shapes, by arch, and of whisper-base's non-causal prefill
+    abs error at the main paths' shapes (the served models' prefills and
+    the sim phase's ``sim_flash_shapes``), and the inputs of the served
+    prefill shapes, by arch, and of whisper-base's non-causal prefill
     shapes, by label, for the timing."""
     def rnd(shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
@@ -521,18 +548,29 @@ def flash_kernel_phase(torch, fa, gen):
             f"{arch} prefill B{B} S=T={S} Hq{Hq} Hkv{Hkv} D{D} bfloat16",
             torch.bfloat16, q, k, v, arange(S), arange(S), 0, True))
         inputs[arch] = (q, k, v, arange(S), arange(S))
+    # the sim phase's paths: train_100m's forward and the calibration's
+    # prefills, at qwen3-0.6b's heads
+    Hq, Hkv, D = 16, 8, 128
+    for label, B, S in sim_flash_shapes():
+        q = rnd((B, S, Hq, D), torch.bfloat16)
+        k = rnd((B, S, Hkv, D), torch.bfloat16)
+        v = rnd((B, S, Hkv, D), torch.bfloat16)
+        errs.append(positional(
+            f"{label} B{B} S=T={S} Hq{Hq} Hkv{Hkv} D{D} bfloat16",
+            torch.bfloat16, q, k, v, arange(S), arange(S), 0, True))
+        del q, k, v
     return max(errs), inputs
 
 
 def flash_train_phase(torch, fa, gen):
     """What training reads of the kernel: its log-sum-exp output against
     the plain version's at the served prefill shapes, qwen3-0.6b's train
-    shape, the other dense layouts and whisper-base's three attentions
-    (prefill and train shapes), f32 and bf16, with the output asked for
-    with the LSE equal bit for bit to the output without (a null LSE
-    pointer changes nothing else); then the autograd op's dq, dk, dv with
-    the kernel forward against those with the plain forward, at the train
-    shapes.  Returns the largest LSE error."""
+    shape and train_100m's, the other dense layouts and whisper-base's
+    three attentions (prefill and train shapes), f32 and bf16, with the
+    output asked for with the LSE equal bit for bit to the output without
+    (a null LSE pointer changes nothing else); then the autograd op's dq,
+    dk, dv with the kernel forward against those with the plain forward,
+    at the train shapes.  Returns the largest LSE error."""
     def rnd(shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
 
@@ -549,6 +587,9 @@ def flash_train_phase(torch, fa, gen):
                                    8, 128, True)] + [
         (arch, 1, S, S, Hq, Hkv, D, True) for arch, Hq, Hkv, D
         in FLASH_DENSE] + whisper
+    train_100m = [(label, B, S_, S_, 16, 8, 128, True)
+                  for label, B, S_ in sim_flash_shapes()[:1]]
+    shapes += train_100m
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         short = str(dtype).replace("torch.", "")
@@ -586,7 +627,7 @@ def flash_train_phase(torch, fa, gen):
                  8, 128, True)] + [
                 (arch, 1, TRAIN_S, TRAIN_S, Hq, Hkv, D, True)
                 for arch, Hq, Hkv, D in FLASH_DENSE] + [
-                w for w in whisper if w[1] == TRAIN_B]:
+                w for w in whisper if w[1] == TRAIN_B] + train_100m:
             q = rnd((B, S, Hq, D), dtype)
             k, v = (rnd((B, T, Hkv, D), dtype) for _ in range(2))
             dout = rnd((B, S, Hq, D), dtype)
@@ -2381,6 +2422,133 @@ def dryrun_phase(torch):
     return out
 
 
+SIM_TIMEOUT_S = 300
+SIM_SWEEP_STREAMS = (1024, 4096)     # where gcr must beat none
+TRAIN_100M_STEPS = 20
+TRAIN_100M_FLASH_A_STEP = 24         # 12 layers x (forward + recomputation)
+# how far each coded H100 constant of the virtual-time engine may sit from
+# this run's measurement of it: the step is host bound and its floor moves
+# with the shared host, by about 20% either side of the coded mean
+SIM_FIT_BAND = 0.35
+
+
+def sim_cli(*args) -> str:
+    """``python -m <args>`` in a subprocess with the checkout's ``src`` on
+    the path; fails the run on a non-zero exit; returns its stdout."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC) + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env,
+                          capture_output=True, text=True,
+                          timeout=SIM_TIMEOUT_S)
+    check(proc.returncode == 0, f"{' '.join(args)} exited "
+          f"{proc.returncode}: {proc.stderr[-3000:]}")
+    print("\n".join([f"  $ python -m {' '.join(args)}   "
+                     f"({time.perf_counter() - t:.1f} s)"]
+                    + [f"    {line}" for line in proc.stdout.splitlines()]))
+    return proc.stdout
+
+
+def sweep_tok_s(out: str) -> dict:
+    """streams -> tok/s from the ``--fleet-sweep`` table."""
+    rows = [line.split() for line in out.splitlines()[1:]]
+    return {int(r[0]): float(r[1].replace(",", "")) for r in rows}
+
+
+def sim_phase():
+    """The H100 constants of the virtual-time engine, and the paths that
+    run on them, each in a fresh process: ``python -m
+    repro_torch.serving.calibrate`` (the decode-step and prefill fits and
+    the host link's rate, each coded constant within SIM_FIT_BAND of its
+    measurement; flash once a layer a prefill); the launcher's
+    ``--fleet-sweep`` with ``none`` and ``gcr`` (gcr must
+    give more tok/s at SIM_SWEEP_STREAMS) and its ``--cluster`` mode; and
+    ``repro_torch.examples.train_100m`` on the card (flash 24 launches a
+    step, the resumed half starting at next_batch 10, the held batch's
+    loss falling, which the example itself checks).
+    Returns the figures and the flash launches of the calibration's
+    prefills and of the example's steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import engine
+
+    t0 = time.perf_counter()
+    print(card_line())
+    fit = json.loads(sim_cli("repro_torch.serving.calibrate")
+                     .splitlines()[-1])
+    want = fit["prefills"] * get_config(engine.CALIBRATION_ARCH).n_layers
+    check(fit["flash_launches"] == want, f"sim phase: "
+          f"{fit['flash_launches']} flash launches in the calibration's "
+          f"{fit['prefills']} prefills, want {want} (one a layer a prefill)")
+    coded = engine.StepCostModel()
+    n_max = engine.CALIBRATION_STREAMS[-1]
+    rate = fit["h2d_bytes_per_s"]
+    coef = 2 * coded.hbm_budget / rate / n_max * 1e3
+    # each coded constant against this run's measurement of it
+    pairs = [("t_fixed_ms", fit["t_fixed_ms"], coded.t_fixed_ms),
+             ("t_tok_ms", fit["t_tok_ms"], coded.t_tok_ms),
+             ("prefill_ms_per_tok", fit["prefill_ms_per_tok"],
+              engine.PREFILL_MS_PER_TOK),
+             ("h2d_bytes_per_s", rate, engine.H2D_BYTES_PER_S)]
+    print(f"  decode-step fit: t_fixed_ms {fit['t_fixed_ms']:.4f}, t_tok_ms "
+          f"{fit['t_tok_ms']:.6f}, R^2 {fit['r2']:.4f}; prefill "
+          f"{fit['prefill_ms_per_tok']:.6f} ms a token, R^2 "
+          f"{fit['prefill_r2']:.4f}")
+    print(f"  thrash_coef 2 x {coded.hbm_budget:.4g} B / "
+          f"{rate / 1e9:.3f} GB/s / {n_max} = {coef:.4f} ms; coded "
+          f"{coded.thrash_coef:.4f} (from "
+          f"{engine.H2D_BYTES_PER_S / 1e9:.3f} GB/s)")
+    for key, got, have in pairs:
+        off = have / got - 1
+        print(f"  coded {key} {have:.6g} vs measured {got:.6g}: "
+              f"{off:+.1%} (band +-{SIM_FIT_BAND:.0%})")
+        check(abs(off) <= SIM_FIT_BAND, f"sim phase: the coded {key} "
+              f"{have:.6g} is {off:+.1%} off this run's {got:.6g}, outside "
+              f"+-{SIM_FIT_BAND:.0%}: recalibrate")
+    serve = "repro_torch.launch.serve"
+    with ThreadPoolExecutor(3) as pool:      # three processes at once
+        jobs = [pool.submit(sim_cli, serve, "--fleet-sweep", "--admission",
+                            adm) for adm in ("none", "gcr")]
+        jobs.append(pool.submit(sim_cli, serve, "--cluster", "--replicas",
+                                "4", "--workload", "bursty", "--router",
+                                "gcr_aware"))
+        outs = [job.result() for job in jobs]
+    sweeps = {adm: sweep_tok_s(out) for adm, out in zip(("none", "gcr"),
+                                                         outs)}
+    cluster = outs[2]
+    for n in SIM_SWEEP_STREAMS:
+        check(sweeps["gcr"][n] > sweeps["none"][n],
+              f"sim phase: gcr {sweeps['gcr'][n]} tok/s not above none "
+              f"{sweeps['none'][n]} at {n} streams")
+    out = sim_cli("repro_torch.examples.train_100m", "--steps",
+                  str(TRAIN_100M_STEPS))
+    # "step N loss L wall W ms peak P GB flash F", one line a step
+    rows = [line.split() for line in out.splitlines()
+            if line.startswith("step ")]
+    walls = [float(r[5]) for r in rows]
+    peak = max(float(r[8]) for r in rows)
+    flash_steps = [int(r[11]) for r in rows]
+    check(len(rows) == TRAIN_100M_STEPS and all(
+        n == TRAIN_100M_FLASH_A_STEP for n in flash_steps),
+        f"train_100m: flash launches a step {flash_steps}, want "
+        f"{TRAIN_100M_FLASH_A_STEP} in each of {TRAIN_100M_STEPS}")
+    half = TRAIN_100M_STEPS // 2
+    check(f"resumed at next_batch {half}" in out,
+          f"train_100m: no resume at next_batch {half}")
+    done = [line for line in out.splitlines() if line.startswith("done:")]
+    check(len(done) == 1, "train_100m: no closing line")
+    print(f"  sim phase: {time.perf_counter() - t0:.1f} s")
+    return {"decode_fit": fit, "h2d_gb_s": rate / 1e9,
+            "thrash_coef_measured": coef,
+            "fleet_sweep_tok_s": sweeps,
+            "cluster_summary": cluster.splitlines()[1],
+            "train_100m": {"step_wall_ms": walls, "peak_gb": peak,
+                           "flash_steps": flash_steps,
+                           "closing": done[0]},
+            "flash_launches": {"sim_calibration": fit["flash_launches"],
+                               "train_100m": sum(flash_steps)}}
+
+
 def free_model(torch) -> None:
     """Give the last model's memory back before the next one loads."""
     gc.collect()
@@ -2534,6 +2702,8 @@ def main() -> int:
     free_model(torch)
     parallel = parallel_phase(torch)
     dryrun = dryrun_phase(torch)
+    free_model(torch)
+    sim = sim_phase()
     sharded_by_path = dict.fromkeys(kernels, 0)
     for arch in PARALLEL_ARCHS:
         got = parallel[arch]["sharded_launches"]
@@ -2546,13 +2716,18 @@ def main() -> int:
                         "frontend_train": frontend_train_by_path[kernel],
                         "sharded_train": sharded_by_path[kernel]}
                for kernel in kernels}
+    for path, n in sim["flash_launches"].items():
+        by_path["flash"][path] = n
+        for kernel in ("gmm", "ssd", "wkv"):
+            by_path[kernel][path] = 0
     for kernel, paths in by_path.items():
         launches[kernel] = sum(paths.values())
     print(f"launches by path (serve runs; the timed train steps of "
           f"{TRAIN_ARCH} and of {', '.join(a for a, _ in KIND_TRAIN)}; the "
           f"prefill and decode steps of "
           f"{', '.join(a for a, _ in FRONTEND)}; their timed train steps; "
-          f"the sharded train steps of {', '.join(PARALLEL_ARCHS)}): "
+          f"the sharded train steps of {', '.join(PARALLEL_ARCHS)}; the "
+          f"sim phase's prefills; train_100m's steps, from its output): "
           f"{by_path}")
 
     print(card_line())
@@ -2591,6 +2766,9 @@ def main() -> int:
         # the dry run's estimate of two train steps against the card, and
         # one production cell traced on the fake (16, 16) mesh
         "dryrun": dryrun,
+        # the virtual-time engine's H100 constants (decode-step fit, host
+        # link), the fleet sweeps on them and the 100M example's run
+        "sim": {k: v for k, v in sim.items() if k != "flash_launches"},
     }, {
         "name": "moe_gmm",
         "route": "cuda",

@@ -57,7 +57,7 @@ def test_port_and_chip_smoke_import_with_jax_and_repro_blocked():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
-    assert len(names) >= 30                     # every module was imported
+    assert len(names) >= 50                     # every module was imported
     for name in ("repro_torch.models.moe", "repro_torch.kernels.moe_gmm",
                  "repro_torch.kernels.moe_gmm.ops",
                  "repro_torch.kernels.moe_gmm.ref",
@@ -76,7 +76,16 @@ def test_port_and_chip_smoke_import_with_jax_and_repro_blocked():
                  "repro_torch.checkpoint",
                  "repro_torch.checkpoint.manager", "repro_torch.steps",
                  "repro_torch.launch.train", "repro_torch.launch.dryrun",
-                 "repro_torch.launch.cost_analysis"):
+                 "repro_torch.launch.cost_analysis",
+                 "repro_torch.core.gcr_numa", "repro_torch.core.simulator",
+                 "repro_torch.core.topology", "repro_torch.runtime",
+                 "repro_torch.runtime.fault_tolerance",
+                 "repro_torch.examples", "repro_torch.examples.serve_gcr",
+                 "repro_torch.examples.train_100m", "repro_torch.cluster",
+                 *(f"repro_torch.cluster.{m}" for m in (
+                     "controller", "faults", "fleet", "invariants", "obs",
+                     "router", "signals", "telemetry", "topology",
+                     "workload"))):
         assert name in names, name
 
 
