@@ -124,7 +124,15 @@ sources (one ``nvcc`` each, started together) and then:
    ``python -m repro_torch.examples.train_100m`` for 20 steps on the card
    (24 flash launches a step, the resumed half at next_batch 10, the
    held batch's loss falling, each step's wall and peak memory);
-12. prints one JSON line describing every kernel of the path, then, as
+12. runs the port's virtual-time and host-thread programs that touch no
+   device (``examples_phase``), each in a fresh process that fails the
+   run on a non-zero exit, with its wall: ``python -m repro_torch.lint
+   --json`` (the determinism-contract linter over the port's
+   ``cluster``, ``serving`` and ``core``; ``ok`` must be true), the
+   ``quickstart``, ``cluster_demo`` and ``trace_demo --smoke`` examples
+   (each of its three runs must export its four trace files) and
+   ``lock_bench --threads 8``;
+13. prints one JSON line describing every kernel of the path, then, as
    the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero.  Without CUDA, or outside a checkout, it
@@ -2549,6 +2557,55 @@ def sim_phase():
                                "train_100m": sum(flash_steps)}}
 
 
+EXAMPLES_TRACE_TAGS = ("blind", "gcr_aware", "faulted")
+EXAMPLES_TRACE_FILES = ("spans.jsonl", "trace.json", "flight.jsonl",
+                        "windows.csv")
+
+
+def timed_cli(*args):
+    """``sim_cli`` with its wall in seconds."""
+    t = time.perf_counter()
+    out = sim_cli(*args)
+    return out, time.perf_counter() - t
+
+
+def examples_phase() -> None:
+    """The port's programs that touch no device, each in a fresh process
+    (``sim_cli`` fails the run on a non-zero exit): the linter over the
+    port's virtual-time layers, and the ``quickstart``, ``cluster_demo``
+    and ``trace_demo --smoke`` examples four at once; then ``lock_bench``
+    alone, since it times real host threads.  Prints each one's wall."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        runs = {"lint": ("repro_torch.lint", "--json"),
+                "quickstart": ("repro_torch.examples.quickstart",),
+                "cluster_demo": ("repro_torch.examples.cluster_demo",),
+                "trace_demo": ("repro_torch.examples.trace_demo", "--smoke",
+                               "--out", tmp)}
+        with ThreadPoolExecutor(len(runs)) as pool:
+            jobs = {name: pool.submit(timed_cli, *args)
+                    for name, args in runs.items()}
+            outs = {name: job.result() for name, job in jobs.items()}
+        outs["lock_bench"] = timed_cli("repro_torch.examples.lock_bench",
+                                       "--threads", "8")
+        lint = json.loads(outs["lint"][0])
+        check(lint["ok"] is True, f"examples phase: the linter is not "
+              f"clean: new {lint['new']}, stale {lint['stale_baseline']}")
+        missing = [f"{tag}.{name}" for tag in EXAMPLES_TRACE_TAGS
+                   for name in EXAMPLES_TRACE_FILES
+                   if not (Path(tmp) / f"{tag}.{name}").is_file()]
+        check(not missing, f"examples phase: trace_demo wrote no {missing}")
+    check("collapse onset found for the blind fleet only"
+          in outs["trace_demo"][0], "examples phase: trace_demo's blind "
+          "fleet showed no collapse onset")
+    walls = {name: round(wall, 3) for name, (_, wall) in outs.items()}
+    print(f"  examples phase: walls {walls} s; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 def free_model(torch) -> None:
     """Give the last model's memory back before the next one loads."""
     gc.collect()
@@ -2704,6 +2761,7 @@ def main() -> int:
     dryrun = dryrun_phase(torch)
     free_model(torch)
     sim = sim_phase()
+    examples_phase()
     sharded_by_path = dict.fromkeys(kernels, 0)
     for arch in PARALLEL_ARCHS:
         got = parallel[arch]["sharded_launches"]

@@ -1,8 +1,9 @@
 """Cluster-level SLO telemetry (DESIGN.md 7).
 
 The port's own copy of ``repro.cluster.telemetry``, unchanged in
-behaviour but for ``SLO``'s per-token default, which derives from the
-H100 step cost (``PER_TOKEN_MS``): the port imports nothing of ``repro``.
+behaviour but for ``SLO``'s two defaults, which derive from the H100 step
+cost (``PER_TOKEN_MS``, ``TTFT_MS``): the port imports nothing of
+``repro``.
 
 Collapse at fleet scale is invisible in mean throughput until it is
 catastrophic; it shows up first in the latency tail and in *goodput* -
@@ -45,12 +46,25 @@ __all__ = ["SLO", "ClusterResult", "ClusterTelemetry", "percentile"]
 # does not: 2 x (T_FIXED_MS + T_TOK_MS x 384)
 PER_TOKEN_MS = 2 * (T_FIXED_MS + T_TOK_MS * 384)
 
+# the default time-to-first-token objective: the reference's 2,000 ms
+# counted in the reference's decode steps of a full active set at the same
+# 384 streams (3.0 + 0.02 x 384 = 10.68 ms, its StepCostModel defaults), so
+# about 187 steps, times the H100 step there (38.22 + 0.2040 x 384 =
+# 116.56 ms): 2000 x 116.56 / 10.68, about 21.8 s.  A first token waits for
+# the streams ahead of it to free slots, and those streams take steps, not
+# milliseconds, so the objective keeps its meaning in steps; the reference's
+# 2,000 ms is 17 H100 steps, shorter than one request's life on the card
+REF_TTFT_MS = 2000.0
+REF_STEP_384_MS = 3.0 + 0.02 * 384
+TTFT_MS = REF_TTFT_MS / REF_STEP_384_MS * (T_FIXED_MS + T_TOK_MS * 384)
+
 
 @dataclass(frozen=True)
 class SLO:
     """Per-request service objective."""
 
-    ttft_ms: float = 2000.0       # time to first token
+    # time to first token (TTFT_MS when built)
+    ttft_ms: float = field(default_factory=lambda: TTFT_MS)
     # mean inter-token latency after the first (PER_TOKEN_MS when built)
     per_token_ms: float = field(default_factory=lambda: PER_TOKEN_MS)
 

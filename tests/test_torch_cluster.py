@@ -26,6 +26,7 @@ from test_torch_sim_serving import ref_constants  # noqa: F401 (fixture)
 
 import repro.cluster as ref_cluster
 import repro.launch.serve as ref_serve
+import repro.serving.engine as ref_engine
 import repro_torch.cluster as port_cluster
 import repro_torch.launch.serve as port_serve
 
@@ -95,6 +96,49 @@ def test_staleness_zero_is_bit_exact_with_live_bus(ref_constants):
     assert digest(trace_rows(fleet.replicas)) == GOLDEN["affinity"]["digest"]
     assert res.completed == GOLDEN["affinity"]["completed"]
     assert dataclasses.asdict(via_run_fleet) == dataclasses.asdict(res)
+
+
+# -- the workload generators and the fleet topology, at their defaults ---------
+
+WORKLOAD_CALLS = {
+    "poisson": lambda c: c.poisson(40.0, 3_000.0),
+    "bursty": lambda c: c.bursty(40.0, 3_000.0),
+    "diurnal": lambda c: c.diurnal(40.0, 3_000.0),
+    "pod_skewed_diurnal": lambda c: c.pod_skewed_diurnal(40.0, 3_000.0),
+    "sessions": lambda c: c.sessions(40.0, 3_000.0),
+    "uniform": lambda c: c.uniform(64),
+    "replay": lambda c: c.replay(c.to_trace(c.bursty(40.0, 3_000.0)),
+                                 start_rid=5),
+    **{f"make_workload-{kind}": (lambda c, kind=kind: c.make_workload(
+        kind, 40.0, 3_000.0)) for kind in port_cluster.WORKLOADS},
+}
+
+
+@pytest.mark.parametrize("kind", list(WORKLOAD_CALLS))
+def test_workload_equals_reference_at_its_defaults(kind):
+    """Each generator's defaults (the contract table's) give the
+    reference's requests, field for field."""
+    assert port_cluster.WORKLOADS == ref_cluster.WORKLOADS
+    ref = WORKLOAD_CALLS[kind](ref_cluster)
+    got = WORKLOAD_CALLS[kind](port_cluster)
+    assert len(ref) > 0
+    assert [dataclasses.astuple(r) for r in got] == \
+        [dataclasses.astuple(r) for r in ref]
+
+
+def test_fleet_topology_equals_reference_at_its_defaults():
+    for kw in ({}, {"n_pods": 2}, {"n_pods": 3, "assignment": {1: 5}}):
+        ref, got = ref_cluster.FleetTopology(**kw), \
+            port_cluster.FleetTopology(**kw)
+        assert repr(got) == repr(ref)
+        for top in (ref, got):
+            top.assign(4, pod=7)
+        assert [got.assign(i) for i in range(7)] == \
+            [ref.assign(i) for i in range(7)]
+        assert got.partition(range(7)) == ref.partition(range(7))
+        for top in (ref, got):
+            top.begin_run()
+        assert repr(got) == repr(ref)
 
 
 # -- run_fleet: autoscaling, stale signals, faults, observability -------------
@@ -205,7 +249,14 @@ def test_h100_slo_and_migration_derive_from_the_step_cost():
     slo = port_cluster.SLO()
     assert slo.per_token_ms == 2 * (engine.T_FIXED_MS
                                     + engine.T_TOK_MS * 384)
-    assert slo.ttft_ms == ref_cluster.SLO().ttft_ms
+    # the reference's objective in its own steps of 384 streams, times the
+    # H100's step there
+    ref_steps = (ref_cluster.SLO().ttft_ms
+                 / ref_engine.StepCostModel().step_ms(384, 0, 0.0))
+    assert slo.ttft_ms == pytest.approx(
+        ref_steps * engine.StepCostModel().step_ms(384, 0, 0.0), rel=1e-12)
+    assert slo.ttft_ms == pytest.approx(21_827.0, abs=1.0)
+    assert port_cluster.SLO(ttft_ms=2000.0).ttft_ms == 2000.0
     assert port_cluster.SLO(per_token_ms=40.0).per_token_ms == 40.0
     mig = port_cluster.MigrationCost()
     assert mig.base_ms == engine.T_FIXED_MS
@@ -218,11 +269,16 @@ def test_h100_defaults_give_the_slo_controller_a_signal(autoscale, capsys):
     """Under the port's own defaults the SLO is met in full at light load;
     at the launcher's default 500 rps the fixed fleet misses it for part
     of its requests, and the SLO controller scales out and meets it for
-    more of them."""
-    light, _ = cluster_lines(capsys, "--autoscale", autoscale, "--rps", "60")
+    more of them.  The offered window is twice the launcher's 5 s: the
+    queue that 5 s of arrivals leave drains within the H100's TTFT
+    objective (``telemetry.TTFT_MS``, about 21.8 s), so only a longer
+    window shows the fixed fleet falling behind."""
+    window = ("--duration-ms", "10000")
+    light, _ = cluster_lines(capsys, "--autoscale", autoscale, "--rps", "60",
+                             *window)
     assert light["slo"] == "100%" and light["goodput"] == light["tok/s"]
-    fixed, _ = cluster_lines(capsys)
-    scaled, scale = cluster_lines(capsys, "--autoscale", autoscale)
+    fixed, _ = cluster_lines(capsys, *window)
+    scaled, scale = cluster_lines(capsys, "--autoscale", autoscale, *window)
     assert 0 < int(fixed["slo"].rstrip("%")) < 100
     assert int(scaled["slo"].rstrip("%")) > int(fixed["slo"].rstrip("%"))
     assert int(scale["out"]) > 0

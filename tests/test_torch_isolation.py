@@ -81,12 +81,44 @@ def test_port_and_chip_smoke_import_with_jax_and_repro_blocked():
                  "repro_torch.core.topology", "repro_torch.runtime",
                  "repro_torch.runtime.fault_tolerance",
                  "repro_torch.examples", "repro_torch.examples.serve_gcr",
-                 "repro_torch.examples.train_100m", "repro_torch.cluster",
+                 "repro_torch.examples.train_100m",
+                 *(f"repro_torch.examples.{m}" for m in (
+                     "quickstart", "cluster_demo", "trace_demo",
+                     "lock_bench")),
+                 *(f"repro_torch.lint.{m}" for m in (
+                     "cli", "contract", "findings", "impact", "pickle_lint",
+                     "rules", "runner", "surface")),
+                 "repro_torch.lint", "repro_torch.cluster",
                  *(f"repro_torch.cluster.{m}" for m in (
                      "controller", "faults", "fleet", "invariants", "obs",
                      "router", "signals", "telemetry", "topology",
                      "workload"))):
         assert name in names, name
+
+
+_LINT_BLOCKED_SCRIPT = r"""
+import runpy, sys
+
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("torch", "numpy", "jax", "jaxlib", "repro"):
+            raise ImportError(f"{name} blocked: the linter is stdlib only")
+        return None
+
+sys.meta_path.insert(0, _Block())
+sys.argv = ["repro_torch.lint", "--explain", "R101"]
+runpy.run_module("repro_torch.lint", run_name="__main__", alter_sys=True)
+"""
+
+
+def test_lint_explain_runs_with_torch_numpy_jax_and_repro_blocked():
+    """``python -m repro_torch.lint --explain R101`` on an interpreter that
+    can import none of ``torch``, ``numpy``, ``jax`` or ``repro``."""
+    proc = subprocess.run([sys.executable, "-c", _LINT_BLOCKED_SCRIPT],
+                          cwd=REPO, env=_env(), capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("R101  (enforces DESIGN.md 3)")
 
 
 def _no_cuda():

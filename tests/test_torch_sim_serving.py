@@ -36,13 +36,13 @@ def port_cost(**over):
 REF_PREFILL_MS_PER_TOK = 0.05
 
 
-@pytest.fixture
-def ref_constants(monkeypatch):
+def patch_ref_constants(mp):
     """Every bare ``StepCostModel()`` in the port builds the reference's
     constants (the engine's default cost, the launcher's cluster mode, the
     fleet's ``knee_cost`` and ``est_capacity_rps``), and so do the port's
-    other H100 defaults: ``SLO``'s per-token objective, the fleet's
-    ``MigrationCost()`` and the launcher's prefill charge."""
+    other H100 defaults: ``SLO``'s two objectives, the fleet's
+    ``MigrationCost()`` and the launcher's prefill charge.  ``mp`` is a
+    ``pytest.MonkeyPatch``."""
     import repro.cluster.controller as ref_controller
     import repro.cluster.telemetry as ref_telemetry
     import repro_torch.cluster.controller as port_controller
@@ -50,15 +50,22 @@ def ref_constants(monkeypatch):
     import repro_torch.cluster.telemetry as port_telemetry
 
     factory = functools.partial(port_engine.StepCostModel, **REF_COST)
-    monkeypatch.setattr(port_engine, "StepCostModel", factory)
-    monkeypatch.setattr(port_fleet, "StepCostModel", factory)
-    monkeypatch.setattr(port_telemetry, "PER_TOKEN_MS",
-                        ref_telemetry.SLO().per_token_ms)
-    monkeypatch.setattr(port_fleet, "MigrationCost", functools.partial(
+    mp.setattr(port_engine, "StepCostModel", factory)
+    mp.setattr(port_fleet, "StepCostModel", factory)
+    mp.setattr(port_telemetry, "PER_TOKEN_MS",
+               ref_telemetry.SLO().per_token_ms)
+    mp.setattr(port_telemetry, "TTFT_MS", ref_telemetry.SLO().ttft_ms)
+    mp.setattr(port_fleet, "MigrationCost", functools.partial(
         port_controller.MigrationCost,
         **dataclasses.asdict(ref_controller.MigrationCost())))
-    monkeypatch.setattr(port_serve, "PREFILL_MS_PER_TOK",
-                        REF_PREFILL_MS_PER_TOK)
+    mp.setattr(port_serve, "PREFILL_MS_PER_TOK", REF_PREFILL_MS_PER_TOK)
+
+
+@pytest.fixture
+def ref_constants(monkeypatch):
+    """The port under the reference's constants (``patch_ref_constants``)
+    for one test."""
+    patch_ref_constants(monkeypatch)
 
 
 def sweep_requests(mod, n, seed, prefixes=False):
