@@ -12,7 +12,8 @@ sources (one ``nvcc`` each, started together) and then:
    windowed and non-causal, plus GQA, ragged lengths, head dim 80,
    ring-buffer positions with unwritten (-1) slots (also with S and T
    ragged against the kernel's 128-row tiles, at head dims 80 and 128),
-   strided views, the served attention models' prefill shapes, the
+   strided views, the served attention models' prefill shapes (the
+   large configs' too, mixtral-8x7b's with its window of 4096), the
    other dense configs' head layouts (MHA 32/32, groups of 6 and 4, at
    head dim 128) and whisper-base's three attentions (MHA 8/8 at head dim
    64: the encoder's, non-causal at S = T = 512; the cross-attention,
@@ -23,7 +24,8 @@ sources (one ``nvcc`` each, started together) and then:
 3. times the kernel, the plain version and PyTorch's
    ``scaled_dot_product_attention`` (a yardstick only; the port never
    calls it) at qwen3's, granite's and zamba2's prefill shapes (head dims
-   128, 64 and 80) and whisper-base's two non-causal ones, in device
+   128, 64 and 80), the large configs' three layouts (32/8, 32/32 and
+   48/8 at head dim 128) and whisper-base's two non-causal ones, in device
    time (the kernel's and SDPA's three times each, with the kernels SDPA
    ran) and in CUDA events, beside the card's bound;
 4. holds the grouped expert matmul (MoE) kernels against their plain
@@ -31,8 +33,9 @@ sources (one ``nvcc`` each, started together) and then:
    expert and a narrow one for few; each case checks which ran): the
    reference sweep, ragged capacities, 64-row half-tiles ending inside a
    batch row, rows on each side of the narrow kernel's limit, its N at 8
-   to 64, strided 4-d expert buffers and granite-moe's prefill and decode
-   shapes; then times both products (wi and wo) at those two shapes, with
+   to 64, strided 4-d expert buffers and granite-moe's and (bf16)
+   mixtral-8x7b's prefill and decode shapes; then times both products
+   (wi and wo) at those four shapes, with
    the kernel chosen and the host's time a call, beside the plain version,
    ``torch.bmm`` (a yardstick only) and the card's bound;
 5. holds the Mamba2 SSD scan kernel against its plain version in f32 and
@@ -60,9 +63,18 @@ sources (one ``nvcc`` each, started together) and then:
    finite logits, and the first wave's prefill logits against the same
    wave on the plain versions (and prints both runs' distance from that
    wave in f32 on the plain versions); for granite it also counts the
-   tokens whose top-8 experts agree between the two.  Each run then
-   profiles one prefill wave and a few decode steps (device busy time,
-   idle share, the heaviest kernels) and frees its model; then prefills
+   tokens whose top-8 experts agree between the two, and the expert
+   products' launches by the kernel each chose.  Each run prints its
+   prefill and decode times beside their bounds (the wave's FLOPs, a
+   step's weight bytes) and its peak memory, then profiles one prefill
+   wave and a few decode steps (device busy time, idle share, the
+   heaviest kernels) and frees its model.  Then the same for the large
+   configs (``SERVED_LARGE``): qwen3-8b (36 layers), deepseek-7b (30,
+   MHA) and internlm2-20b (48, query groups of 6) at full width and
+   depth, and mixtral-8x7b (8 experts top-2, GCR-MoE, window 4096) at
+   full width on 16 of its 32 layers (all 32 do not fit the card), the
+   f32 line of internlm2 and mixtral on their first 4 layers.  Then it
+   prefills
    and decodes whisper-base (6 encoder and 6 decoder layers, f32 frames)
    and internvl2-2b (24 layers, 256 f32 patches before 768 tokens) at
    full width through ``make_prefill`` and ``make_decode_step`` (no
@@ -180,6 +192,16 @@ GMM_SWEEP = [(4, 128, 256, 128), (2, 256, 512, 256)]
 # _capacity(1 token) at decode
 GMM_PREFILL = (3, 32, 320, 1024, 512)
 GMM_DECODE = (3, 32, 8, 1024, 512)
+# the served MoE archs' expert buffers, by the same rule: (arch, prefill,
+# decode, the dtypes held); mixtral-8x7b's (E 8, d_model 4096, moe_d_ff
+# 14336) run in bf16 alone (no path runs them in f32): its decode wo is
+# the narrow kernel 224 k-tiles deep
+GMM_SERVED = [
+    ("granite-moe-1b-a400m", GMM_PREFILL, GMM_DECODE,
+     ("torch.float32", "torch.bfloat16")),
+    ("mixtral-8x7b", (3, 8, 320, 4096, 14336), (3, 8, 8, 4096, 14336),
+     ("torch.bfloat16",)),
+]
 # (B, C) whose B * C rows sit on each side of the narrow kernel's limit of
 # 64 (64 and 72, twice), and its N at 8, 16, 24 and 64
 GMM_ROWS = [(1, 64), (1, 72), (8, 8), (3, 24), (1, 8), (2, 8), (3, 8)]
@@ -234,9 +256,12 @@ LSE_TOL = {"torch.float32": 5e-5, "torch.bfloat16": 2e-4}
 # outputs round apart (the output's TOL)
 GRAD_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2}
 # the attention models whose prefill flash is timed, with their head dims;
-# the kernels line's flash entry leads with the first
+# the kernels line's flash entry leads with the first.  The large served
+# configs' three layouts (32/8, 32/32, 48/8) too; mixtral-8x7b's is
+# qwen3-8b's with a window that does not bite at PROMPT_LEN
 FLASH_TIMED = {"qwen3-0.6b": 128, "granite-moe-1b-a400m": 64,
-               "zamba2-2.7b": 80}
+               "zamba2-2.7b": 80, "qwen3-8b": 128, "deepseek-7b": 128,
+               "internlm2-20b": 128}
 # and the two non-causal whisper shapes, at its prefill's B
 FLASH_TIMED_WHISPER = ("whisper-base encoder", "whisper-base cross")
 # device-time runs of the kernel and of SDPA at each timed shape
@@ -307,6 +332,34 @@ SERVED = [
     ("rwkv6-7b", dict(
         n_layers=32, d_model=4096, d_ff=14336, vocab_size=65536,
         block_pattern=("rwkv6",), rwkv_head_dim=64, rwkv_heads=64)),
+]
+# the large configurations served the same way, one at a time: (arch,
+# layers run, None for the config's depth; layers of the f32 drift line,
+# None for the layers run; the published widths its config must have).
+# mixtral-8x7b's 32 layers hold 93.4 GB of bf16 weights, more than the
+# card's 80 GB: its first MIXTRAL_SERVE_LAYERS run (47.0 GB), at full
+# width.  A full f32 copy beside the bf16 model fits for qwen3-8b (49 GB
+# together) and deepseek-7b (41 GB), not for internlm2-20b (119 GB) or
+# mixtral's 16 layers (141 GB): their f32 line is taken on the first
+# TRAIN_F32_LAYERS layers of the same weights.  mixtral's window of 4096
+# does not bite at PROMPT_LEN + GEN_LEN positions.
+MIXTRAL_SERVE_LAYERS = 16
+SERVED_LARGE = [
+    ("qwen3-8b", None, None, dict(
+        n_layers=36, d_model=4096, n_heads=32, n_kv_heads=8, head_dim=128,
+        qk_norm=True, d_ff=12288, vocab_size=151936,
+        block_pattern=("attn",))),
+    ("deepseek-7b", None, None, dict(
+        n_layers=30, d_model=4096, n_heads=32, n_kv_heads=32, head_dim=128,
+        d_ff=11008, vocab_size=102400, block_pattern=("attn",))),
+    ("internlm2-20b", None, TRAIN_F32_LAYERS, dict(
+        n_layers=48, d_model=6144, n_heads=48, n_kv_heads=8, head_dim=128,
+        d_ff=16384, vocab_size=92544, block_pattern=("attn",))),
+    ("mixtral-8x7b", MIXTRAL_SERVE_LAYERS, TRAIN_F32_LAYERS, dict(
+        n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8, head_dim=128,
+        vocab_size=32000, block_pattern=("moe",), n_experts=8,
+        n_experts_active=2, moe_d_ff=14336, gcr_moe=True,
+        sliding_window=4096)),
 ]
 # the encoder-decoder and frontend archs, which no engine serves (the
 # reference's cannot: its prefill batch holds only tokens): prefilled and
@@ -545,17 +598,22 @@ def flash_kernel_phase(torch, fa, gen):
             if dtype == torch.bfloat16 and label in FLASH_TIMED_WHISPER:
                 inputs[label] = (q, k, v, arange(S), arange(T))
 
-    # the served models' prefill shapes
+    # the served models' prefill shapes, the large configs' with their
+    # window (mixtral's 4096)
     errs = []
-    for arch, Hq, Hkv, D in FLASH_SERVED:
+    large = [(arch, w["n_heads"], w["n_kv_heads"], w["head_dim"],
+              w.get("sliding_window", 0)) for arch, _, _, w in SERVED_LARGE]
+    for arch, Hq, Hkv, D, window in [(*a, 0) for a in FLASH_SERVED] + large:
         B, S = N_SLOTS, PROMPT_LEN
         q = rnd((B, S, Hq, D), torch.bfloat16)
         k = rnd((B, S, Hkv, D), torch.bfloat16)
         v = rnd((B, S, Hkv, D), torch.bfloat16)
         errs.append(positional(
-            f"{arch} prefill B{B} S=T={S} Hq{Hq} Hkv{Hkv} D{D} bfloat16",
-            torch.bfloat16, q, k, v, arange(S), arange(S), 0, True))
-        inputs[arch] = (q, k, v, arange(S), arange(S))
+            f"{arch} prefill B{B} S=T={S} Hq{Hq} Hkv{Hkv} D{D} "
+            f"window={window} bfloat16", torch.bfloat16, q, k, v,
+            arange(S), arange(S), window, True))
+        if arch in FLASH_TIMED:
+            inputs[arch] = (q, k, v, arange(S), arange(S))
     # the sim phase's paths: train_100m's forward and the calibration's
     # prefills, at qwen3-0.6b's heads
     Hq, Hkv, D = 16, 8, 128
@@ -727,8 +785,8 @@ def gmm_kernel_phase(torch, gm, gen):
     """Every case: kernel vs plain on the same inputs, compared normalised
     by max |want|; each case also checks which kernel ran (bf16: the wide
     or the narrow one, by the rows an expert holds) and that the call
-    counted one launch.  Returns the max abs error at granite's prefill
-    shape (bf16, both products)."""
+    counted one launch.  Returns the max abs error at the served MoE
+    archs' prefill and decode shapes (bf16, both products)."""
     def rnd(shape, dtype, scale=1.0):
         return (torch.randn(shape, generator=gen, device="cuda",
                             dtype=torch.float32) * scale).to(dtype)
@@ -783,25 +841,30 @@ def gmm_kernel_phase(torch, gm, gen):
                 big[:, 1:, 3:43, 8:136], rnd((4, 128, 96), dtype, 0.05))
         compare(f"strided 4-d x (3,4,8,128) of (3,5,48,144) {short}",
                 big[:, 1:, 3:11, 8:136], rnd((4, 128, 96), dtype, 0.05))
-        # granite's serving shapes: both products at prefill and decode
-        for label, (B, E, C, D, F) in (("prefill", GMM_PREFILL),
-                                       ("decode", GMM_DECODE)):
-            x = rnd((B, E, C, D), dtype)
-            wi = rnd((E, D, F), dtype, D ** -0.5)
-            h = rnd((B, E, C, F), dtype)
-            wo = rnd((E, F, D), dtype, F ** -0.5)
-            e1 = compare(f"granite {label} x{(B, E, C, D)} @ wi{(E, D, F)} "
-                         f"{short}", x, wi)
-            e2 = compare(f"granite {label} h{(B, E, C, F)} @ wo{(E, F, D)} "
-                         f"{short}", h, wo)
-            if dtype == torch.bfloat16 and label == "prefill":
-                err = max(e1, e2)
+        # the served MoE archs' shapes: both products at prefill and decode
+        for arch, prefill, decode, dtypes in GMM_SERVED:
+            if str(dtype) not in dtypes:
+                continue
+            for label, (B, E, C, D, F) in (("prefill", prefill),
+                                           ("decode", decode)):
+                x = rnd((B, E, C, D), dtype)
+                wi = rnd((E, D, F), dtype, D ** -0.5)
+                h = rnd((B, E, C, F), dtype)
+                wo = rnd((E, F, D), dtype, F ** -0.5)
+                e1 = compare(f"{arch} {label} x{(B, E, C, D)} @ "
+                             f"wi{(E, D, F)} {short}", x, wi)
+                e2 = compare(f"{arch} {label} h{(B, E, C, F)} @ "
+                             f"wo{(E, F, D)} {short}", h, wo)
+                del x, wi, h, wo
+                if dtype == torch.bfloat16:
+                    err = max(err, e1, e2)
     return err
 
 
 def gmm_timing_phase(torch, gm, gen):
-    """Both products of granite's MoE layer, wi (x @ w_gate, D -> F) and
-    wo (h @ wo, F -> D), at its prefill and decode shapes: kernel, plain
+    """Both products of each served MoE arch's layer (GMM_SERVED), wi (x @
+    w_gate, D -> F) and wo (h @ wo, F -> D), at its prefill and decode
+    shapes: kernel, plain
     version and torch.bmm (a yardstick, over an expert-major copy of x
     made outside the timed region) beside the bound.  Times are device
     time (``device_ms``); the kernel's CUDA-event time per call and the
@@ -809,60 +872,63 @@ def gmm_timing_phase(torch, gm, gen):
     running behind) are printed beside it.  Each call takes the next of
     several input sets that together exceed the L2 four times, so it reads
     its weights from device memory, as each layer of a serve step does.
-    Returns one entry a product and shape; the first is prefill wi."""
-    print("gmm timing, granite-moe-1b-a400m's expert products, bfloat16, "
-          "cold L2 (device time, mean of 20 calls):")
+    Returns one entry an arch, product and shape; the first is granite's
+    prefill wi."""
     out = []
-    for label, (B, E, C, Dm, Ff) in (("prefill", GMM_PREFILL),
-                                     ("decode", GMM_DECODE)):
-        for product, (D, F) in (("wi", (Dm, Ff)), ("wo", (Ff, Dm))):
-            flops, nbytes = gm.work(B, E, C, D, F)
-            sets = []
-            for _ in range(max(2, -(-4 * int(L2_BYTES) // nbytes))):
-                x = torch.randn((B, E, C, D), generator=gen,
-                                device="cuda").to(torch.bfloat16)
-                w = (torch.randn((E, D, F), generator=gen, device="cuda")
-                     * D ** -0.5).to(torch.bfloat16)
-                sets.append((x, w, x.transpose(0, 1).reshape(E, B * C, D)))
+    for arch, prefill, decode, _ in GMM_SERVED:
+        print(f"gmm timing, {arch}'s expert products, bfloat16, cold L2 "
+              "(device time, mean of 20 calls):")
+        for label, (B, E, C, Dm, Ff) in (("prefill", prefill),
+                                         ("decode", decode)):
+            for product, (D, F) in (("wi", (Dm, Ff)), ("wo", (Ff, Dm))):
+                flops, nbytes = gm.work(B, E, C, D, F)
+                sets = []
+                for _ in range(max(2, -(-4 * int(L2_BYTES) // nbytes))):
+                    x = torch.randn((B, E, C, D), generator=gen,
+                                    device="cuda").to(torch.bfloat16)
+                    w = (torch.randn((E, D, F), generator=gen, device="cuda")
+                         * D ** -0.5).to(torch.bfloat16)
+                    sets.append((x, w, x.transpose(0, 1).reshape(E, B * C, D)))
 
-            def rotating(call, n=len(sets)):
-                state = {"i": 0}
+                def rotating(call, n=len(sets)):
+                    state = {"i": 0}
 
-                def fn():
-                    state["i"] = (state["i"] + 1) % n
-                    return call(*sets[state["i"]])
-                return fn
+                    def fn():
+                        state["i"] = (state["i"] + 1) % n
+                        return call(*sets[state["i"]])
+                    return fn
 
-            kernel = rotating(lambda x, w, _: gm.grouped_matmul(x, w))
-            ms = device_ms(torch, kernel)
-            event_ms = time_ms(torch, kernel, iters=20)
-            host_us = statistics.median(host_time_us(torch, kernel)
-                                        for _ in range(5))
-            plain_ms = device_ms(torch, rotating(
-                lambda x, w, _: gm.grouped_matmul(x, w, impl="ref")), 5)
-            library_ms = device_ms(torch, rotating(
-                lambda _, w, x_em: torch.bmm(x_em, w)))
-            # bound: the kernels' work (``gm.work``, which the dry run
-            # reads too): 2 FLOP per multiply-add; x and w read once, out
-            # written once
-            t_ops = flops / PEAK_FLOPS["torch.bfloat16"] * 1e3
-            t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-            bound_ms = max(t_ops, t_bytes)
-            bound_by = "operations" if t_ops >= t_bytes else "bytes"
-            chosen = gm.choose_kernel(torch.bfloat16, B, C)
-            print(f"  {label} {product} x{(B, E, C, D)} @ w{(E, D, F)}, "
-                  f"{len(sets)} input sets: gmm {chosen} kernel {ms:.4f} ms "
-                  f"(events, launch included: {event_ms:.4f} ms; host "
-                  f"{host_us:.1f} us a call) | plain {plain_ms:.4f} ms | bmm "
-                  f"(yardstick) {library_ms:.4f} ms | bound {bound_ms:.4f} "
-                  f"ms ({bound_by}: {flops / 1e9:.2f} GFLOP, "
-                  f"{nbytes / 1e6:.2f} MB)")
-            out.append({"shape": label, "product": product, "kernel": chosen,
-                        "ms": ms, "plain_ms": plain_ms,
-                        "library_ms": library_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "event_ms": event_ms,
-                        "host_us": host_us})
-            del sets
+                kernel = rotating(lambda x, w, _: gm.grouped_matmul(x, w))
+                ms = device_ms(torch, kernel)
+                event_ms = time_ms(torch, kernel, iters=20)
+                host_us = statistics.median(host_time_us(torch, kernel)
+                                            for _ in range(5))
+                plain_ms = device_ms(torch, rotating(
+                    lambda x, w, _: gm.grouped_matmul(x, w, impl="ref")), 5)
+                library_ms = device_ms(torch, rotating(
+                    lambda _, w, x_em: torch.bmm(x_em, w)))
+                # bound: the kernels' work (``gm.work``, which the dry
+                # run reads too): 2 FLOP per multiply-add; x and w read
+                # once, out written once
+                t_ops = flops / PEAK_FLOPS["torch.bfloat16"] * 1e3
+                t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+                bound_ms = max(t_ops, t_bytes)
+                bound_by = "operations" if t_ops >= t_bytes else "bytes"
+                chosen = gm.choose_kernel(torch.bfloat16, B, C)
+                print(f"  {label} {product} x{(B, E, C, D)} @ "
+                      f"w{(E, D, F)}, {len(sets)} input sets: gmm {chosen} "
+                      f"kernel {ms:.4f} ms (events, launch included: "
+                      f"{event_ms:.4f} ms; host {host_us:.1f} us a call) | "
+                      f"plain {plain_ms:.4f} ms | bmm (yardstick) "
+                      f"{library_ms:.4f} ms | bound {bound_ms:.4f} ms "
+                      f"({bound_by}: {flops / 1e9:.2f} GFLOP, "
+                      f"{nbytes / 1e6:.2f} MB)")
+                out.append({"arch": arch, "shape": label, "product": product,
+                            "kernel": chosen, "ms": ms, "plain_ms": plain_ms,
+                            "library_ms": library_ms, "bound_ms": bound_ms,
+                            "bound_by": bound_by, "event_ms": event_ms,
+                            "host_us": host_us})
+                del sets
     return out
 
 
@@ -1144,12 +1210,33 @@ def wkv_timing_phase(torch, wk, gen):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def serve_phase(torch, np, kernels, arch, expect):
-    """Serve ``arch`` at full width and check it.  ``kernels`` maps each
-    kernel's name to its ops module.  Returns the launches of each kernel
-    during the served run alone: {"flash": n, "gmm": n, "ssd": n,
-    "wkv": n}."""
+def first_layers(cfg, params, n_layers):
+    """(cfg, model) of ``params``' first ``n_layers`` layers: a model on
+    the meta device whose tensors are assigned ``params``' own, so it
+    holds no copy."""
+    from repro_torch.models import Transformer
+
+    cut = dataclasses.replace(cfg, n_layers=n_layers)
+    model = Transformer(cut, "meta")
+    model.load_state_dict(
+        {k: v for k, v in params.state_dict().items()
+         if not k.startswith("layers.") or int(k.split(".")[1]) < n_layers},
+        assign=True)
+    return cut, model
+
+
+def serve_phase(torch, np, kernels, arch, expect, n_layers=None,
+                f32_layers=None):
+    """Serve ``arch`` at full width and check it, on its first
+    ``n_layers`` layers (None: its depth).  ``kernels`` maps each kernel's
+    name to its ops module.  The first wave is also run in f32 on the
+    plain versions, on the first ``f32_layers`` layers of the same weights
+    (None: all that run) where a full f32 copy does not fit beside the
+    model.  Returns the launches of each kernel during the served run
+    alone: {"flash": n, "gmm": n, "ssd": n, "wkv": n}."""
+    from repro_torch.config import H100
     from repro_torch.configs import get_config
+    from repro_torch.launch.cost_analysis import CostCounter
     from repro_torch.models import Transformer, init_params, prefill
     from repro_torch.models import moe as moe_mod
     from repro_torch.serving.engine import TorchServeEngine
@@ -1158,15 +1245,24 @@ def serve_phase(torch, np, kernels, arch, expect):
     got_widths = {k: getattr(cfg, k) for k in expect}
     check(got_widths == expect and cfg.dtype == "bfloat16",
           f"unexpected {arch} config {cfg}")
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        print(f"serve phase: {arch} cut to {n_layers} of its "
+              f"{expect['n_layers']} layers, at full width")
     kind = cfg.block_pattern[0]
     is_moe = kind == "moe"
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
     print(f"serve phase: {cfg.name} {n_params / 1e6:.1f}M params "
-          f"initialised in {time.perf_counter() - t0:.2f} s")
+          f"({weight_bytes / 1e9:.2f} GB) initialised in "
+          f"{time.perf_counter() - t0:.2f} s, peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
     max_len = PROMPT_LEN + GEN_LEN
     eng = TorchServeEngine(cfg, params, n_slots=N_SLOTS, max_len=max_len,
@@ -1175,6 +1271,7 @@ def serve_phase(torch, np, kernels, arch, expect):
         0, cfg.vocab_size, (N_STREAMS, PROMPT_LEN)).astype(np.int32)
 
     prefill_ms, decode_ms, finite, first = [], [], [], {}
+    rows = {"prefill": [], "decode": []}       # the batch of each call
     run_prefill, run_decode = eng._prefill, eng._decode
 
     # the experts each MoE layer picks, recorded during one prefill
@@ -1187,6 +1284,18 @@ def serve_phase(torch, np, kernels, arch, expect):
             routing.append(out[3].sort(dim=-1).values)
         return out
 
+    # the expert products' launches by the kernel each call chose
+    gm, gmm_kernels = kernels["gmm"], {}
+    grouped_matmul = moe_mod.grouped_matmul
+
+    def counting_grouped_matmul(x, w, **kwargs):
+        before = gm.launches
+        out = grouped_matmul(x, w, **kwargs)
+        if gm.launches > before:
+            gmm_kernels[gm.last_kernel] = (gmm_kernels.get(gm.last_kernel, 0)
+                                           + gm.launches - before)
+        return out
+
     def timed_prefill(p, batch):
         nonlocal routing
         if not first:
@@ -1197,6 +1306,7 @@ def serve_phase(torch, np, kernels, arch, expect):
         torch.cuda.synchronize()
         prefill_ms.append((time.perf_counter() - t) * 1e3)
         finite.append(torch.isfinite(logits).all())
+        rows["prefill"].append(batch["tokens"].shape)
         if not first:
             first["tokens"] = batch["tokens"].clone()
             first["logits"] = logits.clone()
@@ -1210,46 +1320,79 @@ def serve_phase(torch, np, kernels, arch, expect):
         torch.cuda.synchronize()
         decode_ms.append((time.perf_counter() - t) * 1e3)
         finite.append(torch.isfinite(logits).all())
+        rows["decode"].append(tok.shape)
         return logits, cache
 
     eng._prefill, eng._decode = timed_prefill, timed_decode
     moe_mod.router_topk = recording_router_topk
+    moe_mod.grouped_matmul = counting_grouped_matmul
     try:
         for mod in kernels.values():         # count the main path alone
             mod.launches = 0
+        gmm_kernels.clear()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out = eng.generate(prompts, GEN_LEN)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = {name: mod.launches for name, mod in kernels.items()}
+        by_kernel = dict(gmm_kernels)
+        serve_peak = torch.cuda.max_memory_allocated()
+        wave = {"tokens": first["tokens"]}
         with torch.no_grad():
             routing = []
-            ref_logits, _ = prefill(cfg, params, {"tokens": first["tokens"]},
-                                    max_len, impl="ref")
+            ref_logits, _ = prefill(cfg, params, wave, max_len, impl="ref")
             ref_routing, routing = routing, None
             # the same wave in f32 on the plain versions: how far each bf16
-            # run is from it says whether the kernels add to bf16's drift
-            cfg32 = dataclasses.replace(cfg, dtype="float32")
+            # run is from it says whether the kernels add to bf16's drift;
+            # where the f32 copy would not fit, on the first f32_layers
+            # layers, with both bf16 runs taken there too
+            got16, ref16, cfg16, sub = first["logits"], ref_logits, cfg, params
+            if f32_layers is not None:
+                cfg16, sub = first_layers(cfg, params, f32_layers)
+                got16, _ = prefill(cfg16, sub, wave, max_len)
+                ref16, _ = prefill(cfg16, sub, wave, max_len, impl="ref")
+            cfg32 = dataclasses.replace(cfg16, dtype="float32")
             params32 = Transformer(cfg32, "cuda")
-            params32.load_state_dict(params.state_dict())
-            f32_logits, _ = prefill(cfg32, params32,
-                                    {"tokens": first["tokens"]}, max_len,
+            params32.load_state_dict(sub.state_dict())
+            f32_logits, _ = prefill(cfg32, params32, wave, max_len,
                                     impl="ref")
-            del params32
+            del params32, sub
+            check_peak = torch.cuda.max_memory_allocated()
+            # the bounds: a prefill wave's FLOPs (the dry run's counter)
+            # over the bf16 peak, a decode step's weight bytes (every
+            # weight but the embedding table, of which it reads N_SLOTS
+            # rows) over the HBM rate
+            counter = CostCounter()
+            with counter:
+                run_prefill(params, wave)
     finally:
         moe_mod.router_topk = router_topk
+        moe_mod.grouped_matmul = grouped_matmul
 
     waves, steps = len(prefill_ms), len(decode_ms)
     want = {"flash": attention_blocks(cfg) * waves,
             "gmm": 3 * cfg.n_layers * (waves + steps) if is_moe else 0,
             "ssd": cfg.n_layers * waves if kind == "mamba2" else 0,
             "wkv": cfg.n_layers * waves if kind == "rwkv6" else 0}
+    # each MoE call's kernel, by the rows an expert holds: B batch rows of
+    # C = _capacity(S tokens) each (at full width, C = 320 puts 640 or 960
+    # on the wide kernel at prefill, C = 8 puts 16 or 24 on the narrow one
+    # at decode)
+    want_kernels = {}
+    for B, S in (rows["prefill"] + rows["decode"]) if is_moe else ():
+        C = moe_mod._capacity(S, cfg.n_experts, cfg.n_experts_active,
+                              cfg.moe_capacity_factor)
+        chosen = gm.choose_kernel(torch.bfloat16, B, C)
+        want_kernels[chosen] = want_kernels.get(chosen, 0) + 3 * cfg.n_layers
     adm = eng.admission
     print(f"  waves={waves} decode steps={steps} launches={launches} "
-          f"(want {want}) stat_fast={adm.stat_fast} "
-          f"stat_parked={adm.stat_parked}")
+          f"(want {want}) gmm by kernel {by_kernel} (want {want_kernels}) "
+          f"stat_fast={adm.stat_fast} stat_parked={adm.stat_parked}")
     check(waves == 3, f"expected 3 prefill waves, got {waves}")
     check(launches == want, f"launches {launches} != {want}")
+    check(by_kernel == want_kernels,
+          f"gmm by kernel {by_kernel} != {want_kernels}")
     check((adm.stat_fast, adm.stat_parked) == (8, 2),
           f"admission counts {adm.stat_fast}/{adm.stat_parked} != 8/2")
     check(bool(torch.stack(finite).all()), "non-finite logits")
@@ -1265,9 +1408,15 @@ def serve_phase(torch, np, kernels, arch, expect):
           f"max_abs_err={err:.4e} tol={LOGIT_RTOL * scale:.4e} "
           f"(max |logit| {scale:.3f}); greedy tokens agree "
           f"{agree}/{got.shape[0]}")
-    print(f"  against the same wave in f32 on the plain versions: plain bf16 "
-          f"max_abs_err={(ref - f32_logits).abs().max().item():.4e}, "
-          f"kernels bf16 {(got - f32_logits).abs().max().item():.4e}")
+    where = ("" if f32_layers is None else
+             f" (the first {f32_layers} of {cfg.n_layers} layers, the same "
+             "weights: a full f32 copy does not fit beside the model)")
+    f32_logits = f32_logits.float()
+    print(f"  against the same wave in f32 on the plain versions{where}: "
+          f"plain bf16 max_abs_err="
+          f"{(ref16.float() - f32_logits).abs().max().item():.4e}, kernels "
+          f"bf16 {(got16.float() - f32_logits).abs().max().item():.4e} "
+          f"(max |logit| {f32_logits.abs().max().item():.3f})")
     if is_moe:
         check(len(first["routing"]) == len(ref_routing) == cfg.n_layers,
               "routing was not recorded once a layer")
@@ -1280,13 +1429,25 @@ def serve_phase(torch, np, kernels, arch, expect):
     check(err <= LOGIT_RTOL * scale, "prefill logits disagree")
 
     tokens = N_STREAMS * GEN_LEN
-    print(f"  prefill ms per wave: {[round(t, 3) for t in prefill_ms]}")
+    embed = params.embed
+    step_bytes = weight_bytes - (embed.numel() - N_SLOTS * cfg.d_model) \
+        * embed.element_size()
+    prefill_bound = max(counter.flops / H100.peak_flops,
+                        weight_bytes / H100.hbm_bw) * 1e3
+    decode_bound = step_bytes / H100.hbm_bw * 1e3
+    print(f"  prefill ms per wave: {[round(t, 3) for t in prefill_ms]}; "
+          f"bound {prefill_bound:.3f} ms ({counter.flops / 1e12:.3f} TFLOP "
+          f"a wave of {N_SLOTS} x {PROMPT_LEN} at {H100.peak_flops / 1e12:g} "
+          "TFLOP/s)")
     print(f"  decode ms per step: median {statistics.median(decode_ms):.3f} "
-          f"over {steps} steps")
+          f"over {steps} steps; bound {decode_bound:.3f} ms "
+          f"({step_bytes / 1e9:.3f} GB of weights a step at "
+          f"{H100.hbm_bw / 1e12:g} TB/s)")
     print(f"  generated {tokens} tokens in {wall_s:.3f} s: "
           f"{tokens / wall_s:.1f} tokens/s (re-prefill per wave included)")
+    print(f"  peak allocated: serving {serve_peak / 1e9:.2f} GB, with the "
+          f"plain and f32 checks {check_peak / 1e9:.2f} GB")
     print(f"  stream 0 tokens: {out[0].tolist()}")
-    wave = {"tokens": first["tokens"]}
     profile_phase(torch, lambda: run_prefill(params, wave),
                   lambda c, t: run_decode(params, c, t))
     return launches
@@ -2730,6 +2891,14 @@ def main() -> int:
     free_model(torch)
     print(f"launches over the {len(SERVED)} serve runs: {launches}")
     serve_launches = dict(launches)
+    large_launches = dict.fromkeys(kernels, 0)
+    for arch, n_layers, f32_layers, expect in SERVED_LARGE:
+        for kernel, n in serve_phase(torch, np, kernels, arch, expect,
+                                     n_layers, f32_layers).items():
+            large_launches[kernel] += n
+        free_model(torch)
+    print(f"launches over the {len(SERVED_LARGE)} large serve runs: "
+          f"{large_launches}")
     prefill_by_path, decode_by_path = (dict.fromkeys(kernels, 0)
                                        for _ in range(2))
     frontend = {}
@@ -2768,6 +2937,7 @@ def main() -> int:
         sharded_by_path["flash"] += got["flash"]
         sharded_by_path["gmm"] += got["gmm"]
     by_path = {kernel: {"serve": serve_launches[kernel],
+                        "serve_large": large_launches[kernel],
                         "train": train_by_path[kernel],
                         "frontend_prefill": prefill_by_path[kernel],
                         "frontend_decode": decode_by_path[kernel],
@@ -2780,8 +2950,8 @@ def main() -> int:
             by_path[kernel][path] = 0
     for kernel, paths in by_path.items():
         launches[kernel] = sum(paths.values())
-    print(f"launches by path (serve runs; the timed train steps of "
-          f"{TRAIN_ARCH} and of {', '.join(a for a, _ in KIND_TRAIN)}; the "
+    print(f"launches by path (serve runs; the large serve runs; the timed "
+          f"train steps of {TRAIN_ARCH} and of {', '.join(a for a, _ in KIND_TRAIN)}; the "
           f"prefill and decode steps of "
           f"{', '.join(a for a, _ in FRONTEND)}; their timed train steps; "
           f"the sharded train steps of {', '.join(PARALLEL_ARCHS)}; the "

@@ -121,6 +121,19 @@ def test_bf16_kernels_at_granites_serving_shapes(B, E, C, D, F, kernel):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,E,C,D,F,kernel", [
+    (3, 8, 320, 4096, 14336, "wide"),    # prefill, wi (gate and up)
+    (3, 8, 320, 14336, 4096, "wide"),    # prefill, wo
+    (3, 8, 8, 4096, 14336, "narrow"),    # decode, wi: 224 column slices
+    (3, 8, 8, 14336, 4096, "narrow"),    # decode, wo: 224 k-tiles deep
+])
+def test_bf16_kernels_at_mixtrals_serving_shapes(B, E, C, D, F, kernel):
+    """mixtral-8x7b's expert products when serving 3 slots: C =
+    _capacity(1024 tokens) = 320 at prefill and 8 at decode."""
+    _run(B, E, C, D, F, D ** -0.5, kernel)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("B,C,kernel", [
     (1, 64, "narrow"), (1, 72, "wide"), (8, 8, "narrow"), (3, 24, "wide")])
 def test_bf16_rows_on_each_side_of_the_narrow_limit(B, C, kernel):

@@ -53,6 +53,35 @@ def test_generate_matches_jax_engine(kind, stats):
                 jeng.admission.stat_parked) == stats
 
 
+@pytest.mark.parametrize("arch", ["qwen3-8b", "deepseek-7b", "internlm2-20b",
+                                  "mixtral-8x7b"])
+def test_generate_matches_jax_engine_for_the_large_archs(arch):
+    """The four configurations served at full width on one card, at their
+    smoke widths in f32: qk-norm (qwen3-8b), MHA (deepseek-7b), a query
+    group of 2 (internlm2-20b) and 4 experts top-2 under GCR-MoE with a
+    sliding window (mixtral-8x7b).  The prompt of 40 is longer than
+    mixtral's smoke window of 32, so its ring buffer wraps."""
+    jcfg = dataclasses.replace(jget_smoke(arch), dtype="float32")
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    jparams = jinit_params(jcfg, jax.random.key(0))
+    params = params_from_numpy(
+        jax.tree.map(lambda a: np.asarray(a, np.float32), jparams), cfg,
+        "cpu")
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (8, 40)).astype(np.int32)
+
+    jeng = JaxServeEngine(jcfg, jparams, n_slots=3, max_len=50,
+                          admission_kind="gcr")
+    eng = TorchServeEngine(cfg, params, n_slots=3, max_len=50,
+                           admission_kind="gcr", device="cpu")
+    want = jeng.generate(prompts, gen_len=6)
+    got = eng.generate(prompts, gen_len=6)
+    assert got.shape == (8, 6)
+    np.testing.assert_array_equal(got, want)
+    for adm in (eng.admission, jeng.admission):
+        assert (adm.stat_fast, adm.stat_parked) == (8, 2)
+
+
 def _state(adm):
     queues = getattr(adm, "pod_queues", None) or [getattr(adm, "queue", [])]
     return (sorted(adm.active), [[s.stream_id for s in q] for q in queues],
