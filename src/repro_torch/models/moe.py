@@ -29,6 +29,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from ..kernels.moe_gmm.ops import grouped_matmul
+from ..runtime import trace
 from .layers import _param, dense_init_, no_sc
 
 
@@ -172,27 +173,37 @@ def moe_mlp(
     priority_offset: Optional[Union[int, torch.Tensor]] = None,
     impl: str = "auto",              # expert products: auto | ref
     sc=no_sc,                        # sharding hook
+    with_aux: bool = True,           # compute the aux metrics
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Returns (output (B,S,D) in x's dtype, aux metrics incl. the
-    load-balance loss), as ``repro.models.moe.moe_mlp``.
+    load-balance loss), as ``repro.models.moe.moe_mlp``; without
+    ``with_aux`` the metrics are not computed and the dict is empty.
 
     A DTensor ``x`` (under sharding rules) is routed, dispatched and
     combined on each rank's own batch rows (``_sharded_moe``); the expert
-    products run on the layout ``sc(..., "moe_buf")`` gives them."""
+    products run on the layout ``sc(..., "moe_buf")`` gives them.
+
+    Under a recording profiler the counter ``moe.rows`` adds the rows
+    handed to the expert products (B·E·C) and ``moe.rows_with_token`` the
+    admitted (token, expert) pairs that fill them."""
     B, S, D = x.shape
     E, k = n_experts, top_k
     cap = _capacity(S, E, k, capacity_factor)
     offset = priority_offset if gcr_admission else None
     if isinstance(x, DTensor):
-        return _sharded_moe(p, x, E, k, cap, offset, impl, sc)
+        return _sharded_moe(p, x, E, k, cap, offset, impl, sc, with_aux)
     (expert_in, gate_vals, combine_idx, logits, probs, expert_idx,
      admitted) = _dispatch(p.router, x, E, k, cap, offset)
+    trace.count("moe.rows", B * E * cap)
+    trace.count("moe.rows_with_token", admitted)
     expert_in = sc(expert_in, "moe_buf")
 
     h = F.silu(grouped_matmul(expert_in, p.wi_gate, impl=impl)) \
         * grouped_matmul(expert_in, p.wi_up, impl=impl)
     expert_out = sc(grouped_matmul(h, p.wo, impl=impl), "moe_buf")
     out = _combine(expert_out, combine_idx, gate_vals, x.dtype)
+    if not with_aux:
+        return out, {}
 
     # aux: load-balance loss (Switch) + router z-loss + drop fraction
     density = F.one_hot(expert_idx, E).float().mean(dim=(0, 1, 2)) * E
@@ -205,14 +216,16 @@ def moe_mlp(
     return out, aux
 
 
-def _sharded_moe(p, x, E: int, k: int, cap: int, offset, impl: str, sc):
+def _sharded_moe(p, x, E: int, k: int, cap: int, offset, impl: str, sc,
+                 with_aux: bool):
     """``moe_mlp`` for a DTensor ``x``.  Routing, admission and capacity
     are per batch row, so ``_dispatch`` and ``_combine`` run through
     ``local_map`` on each rank's whole rows (x split only by batch,
     replicated on every other mesh dim); the three expert products take
     the capacity buffers as ``sc`` places them (EP: experts on the model
-    axis) and the combine gathers them back.  The aux metrics are means
-    over the global batch (DTensor reductions of the rows' values)."""
+    axis) and the combine gathers them back.  The aux metrics, with
+    ``with_aux``, are means over the global batch (DTensor reductions of
+    the rows' values); the counters count each rank's own rows."""
     mesh = x.device_mesh
     rows = [Shard(0) if pl == Shard(0) else Replicate()
             for pl in x.placements]
@@ -224,15 +237,20 @@ def _sharded_moe(p, x, E: int, k: int, cap: int, offset, impl: str, sc):
     def front(xl, rl):
         (expert_in, gate_vals, combine_idx, logits, probs, expert_idx,
          admitted) = _dispatch(rl, xl, E, k, cap, offset)
+        trace.count("moe.rows", xl.shape[0] * E * cap)
+        trace.count("moe.rows_with_token", admitted)
+        if not with_aux:
+            return expert_in, gate_vals, combine_idx
         return (expert_in, gate_vals, combine_idx, probs,
                 torch.logsumexp(logits, dim=-1).square(),
                 F.one_hot(expert_idx, E).float(), admitted.float())
 
-    (expert_in, gate_vals, combine_idx, probs, lse2, assign,
-     admitted) = local_map(
-        front, out_placements=(rows,) * 7, in_placements=(rows, rep),
+    n_out = 7 if with_aux else 3
+    fronts = local_map(
+        front, out_placements=(rows,) * n_out, in_placements=(rows, rep),
         in_grad_placements=(rows, router_grad), device_mesh=mesh,
         redistribute_inputs=True)(x, p.router)
+    expert_in, gate_vals, combine_idx = fronts[:3]
     expert_in = sc(expert_in, "moe_buf")
     h = F.silu(grouped_matmul(expert_in, p.wi_gate, impl=impl)) \
         * grouped_matmul(expert_in, p.wi_up, impl=impl)
@@ -242,7 +260,10 @@ def _sharded_moe(p, x, E: int, k: int, cap: int, offset, impl: str, sc):
         out_placements=rows, in_placements=(rows, rows, rows),
         in_grad_placements=(rows, rows, rows), device_mesh=mesh,
         redistribute_inputs=True)(expert_out, combine_idx, gate_vals)
+    if not with_aux:
+        return out, {}
 
+    probs, lse2, assign, admitted = fronts[3:]
     density = assign.mean(dim=(0, 1, 2)) * E
     router_prob = probs.mean(dim=(0, 1)) * E
     aux = {

@@ -47,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..config import ModelConfig
+from ..runtime import trace
 from . import layers as L
 from . import mamba2 as M
 from . import moe as MOE
@@ -288,20 +289,24 @@ def _residual(sc, x, out):
 def _apply_attn_block(cfg: ModelConfig, p: Block, x, positions, cache,
                       cache_pos: int, *, decode: bool, impl: str = "auto",
                       moe_offset=None, causal: bool = True, cross_src=None,
-                      cross_cache: Optional[Dict] = None, sc=L.no_sc):
+                      cross_cache: Optional[Dict] = None, sc=L.no_sc,
+                      with_aux: bool = False):
     """attn (+ cross) + mlp/moe block.  Returns (x, cache, aux); aux holds
-    the MoE metrics and is empty for a dense block.  A block with
-    ``cross`` attends over ``cross_src`` (the encoder's output; prefill
-    writes its K/V into ``cross_cache``) or, in decode, over
-    ``cross_cache`` alone."""
-    h = sc(L.rms_norm(x, p.ln1, cfg.norm_eps), "block_in")
-    attn_out, cache = L.multihead_attention(
-        p.attn, h, positions, cache, cache_pos,
-        n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, d_head=cfg.head_dim,
-        qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
-        window=cfg.sliding_window, causal=causal, decode=decode,
-        eps=cfg.norm_eps, impl=impl, sc=sc)
-    x = _residual(sc, x, attn_out)
+    the MoE metrics with ``with_aux`` and is empty for a dense block or
+    without it.  A block with ``cross`` attends over ``cross_src`` (the
+    encoder's output; prefill writes its K/V into ``cross_cache``) or, in
+    decode, over ``cross_cache`` alone.  Under a recording profiler the
+    two halves are the spans ``repro_torch.model.attn`` and ``.mlp`` or
+    ``.moe``."""
+    with trace.span("repro_torch.model.attn"):
+        h = sc(L.rms_norm(x, p.ln1, cfg.norm_eps), "block_in")
+        attn_out, cache = L.multihead_attention(
+            p.attn, h, positions, cache, cache_pos,
+            n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, d_head=cfg.head_dim,
+            qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
+            window=cfg.sliding_window, causal=causal, decode=decode,
+            eps=cfg.norm_eps, impl=impl, sc=sc)
+        x = _residual(sc, x, attn_out)
     if hasattr(p, "cross"):
         hc = sc(L.rms_norm(x, p.ln_cross, cfg.norm_eps), "block_in")
         cross_out, _ = L.multihead_attention(
@@ -310,15 +315,19 @@ def _apply_attn_block(cfg: ModelConfig, p: Block, x, positions, cache,
             causal=False, decode=decode, kv_src=cross_src, is_cross=True,
             eps=cfg.norm_eps, impl=impl, sc=sc)
         x = _residual(sc, x, cross_out)
-    h2 = sc(L.rms_norm(x, p.ln2, cfg.norm_eps), "block_in")
     if hasattr(p, "moe"):
-        moe_out, aux = MOE.moe_mlp(
-            p.moe, h2, n_experts=cfg.n_experts, top_k=cfg.n_experts_active,
-            capacity_factor=cfg.moe_capacity_factor,
-            gcr_admission=cfg.gcr_moe, priority_offset=moe_offset,
-            impl=impl, sc=sc)
-        return _residual(sc, x, moe_out), cache, aux
-    return _residual(sc, x, L.mlp(p.mlp, h2)), cache, {}
+        with trace.span("repro_torch.model.moe"):
+            h2 = sc(L.rms_norm(x, p.ln2, cfg.norm_eps), "block_in")
+            moe_out, aux = MOE.moe_mlp(
+                p.moe, h2, n_experts=cfg.n_experts,
+                top_k=cfg.n_experts_active,
+                capacity_factor=cfg.moe_capacity_factor,
+                gcr_admission=cfg.gcr_moe, priority_offset=moe_offset,
+                impl=impl, sc=sc, with_aux=with_aux)
+            return _residual(sc, x, moe_out), cache, aux
+    with trace.span("repro_torch.model.mlp"):
+        h2 = sc(L.rms_norm(x, p.ln2, cfg.norm_eps), "block_in")
+        return _residual(sc, x, L.mlp(p.mlp, h2)), cache, {}
 
 
 def _apply_mamba_block(cfg: ModelConfig, p: Block, x, cache: Optional[Dict],
@@ -376,19 +385,20 @@ def _apply_rwkv_block(cfg: ModelConfig, p: Block, x,
 def _stack(cfg: ModelConfig, params: Transformer, x, positions,
            caches: Optional[Dict], cache_pos: int, *, decode: bool,
            impl: str = "auto", moe_offset=None, remat: bool = False,
-           cross_src=None, sc=L.no_sc):
+           cross_src=None, sc=L.no_sc, with_aux: bool = False):
     """Run the decoder stack (the reference's layer scan, as a loop), with
     the shared block after layer i when (i + 1) % shared_attn_every == 0,
     on shared cache i // shared_attn_every, and layer i's cross-attention
     over ``cross_src`` and cross cache i.  Returns (x, caches, aux), aux
-    averaged over layers.  ``remat`` (training, no caches) recomputes each
-    unit in the backward pass, the reference's ``jax.checkpoint(unit)``:
-    a unit is one layer and, where it follows that layer, the shared
-    block.  ``cross_src`` goes to the checkpoint as an input of the unit,
-    so the recomputation reads it as the forward did and its gradient
-    flows back to the encoder.  ``sc`` is the sharding hook: each unit
-    gathers its parameters through it (``sc(p, "params")``) inside the
-    recomputed region."""
+    the MoE metrics averaged over layers with ``with_aux`` (only training
+    reads them), else empty.  ``remat`` (training, no caches) recomputes
+    each unit in the backward pass, the reference's
+    ``jax.checkpoint(unit)``: a unit is one layer and, where it follows
+    that layer, the shared block.  ``cross_src`` goes to the checkpoint
+    as an input of the unit, so the recomputation reads it as the forward
+    did and its gradient flows back to the encoder.  ``sc`` is the
+    sharding hook: each unit gathers its parameters through it
+    (``sc(p, "params")``) inside the recomputed region."""
     k = cfg.shared_attn_every
     auxes = []
     for i, lp in enumerate(params.layers):
@@ -399,7 +409,7 @@ def _stack(cfg: ModelConfig, params: Transformer, x, positions,
             scache = caches["shared"][i // k] if shared is not None else None
             lcross = caches["cross"][i] if cfg.is_encdec else None
         args = (cfg, lp, shared, x, positions, lcache, scache, cache_pos,
-                decode, impl, moe_offset, cross_src, lcross, sc)
+                decode, impl, moe_offset, cross_src, lcross, sc, with_aux)
         if remat:
             x, aux = checkpoint(_unit, *args, use_reentrant=False)
         else:
@@ -414,10 +424,11 @@ def _stack(cfg: ModelConfig, params: Transformer, x, positions,
 def _unit(cfg: ModelConfig, p: Block, shared: Optional[Block], x,
           positions, lcache: Optional[Dict], scache: Optional[Dict],
           cache_pos: int, decode: bool, impl: str, moe_offset,
-          cross_src=None, lcross: Optional[Dict] = None, sc=L.no_sc):
+          cross_src=None, lcross: Optional[Dict] = None, sc=L.no_sc,
+          with_aux: bool = False):
     """One layer and, where one follows it, the shared block; the caches
     (None without) are updated in place.  Returns (x, aux), aux the MoE
-    metrics (empty for the other kinds)."""
+    metrics with ``with_aux`` (empty for the other kinds)."""
     aux = {}
     p = sc(p, "params")
     if hasattr(p, "mamba"):
@@ -431,7 +442,7 @@ def _unit(cfg: ModelConfig, p: Block, shared: Optional[Block], x,
                                       cache_pos, decode=decode, impl=impl,
                                       moe_offset=moe_offset,
                                       cross_src=cross_src, cross_cache=lcross,
-                                      sc=sc)
+                                      sc=sc, with_aux=with_aux)
     if shared is not None:
         x, _, _ = _apply_attn_block(cfg, sc(shared, "params"), x, positions,
                                     scache, cache_pos, decode=decode,
@@ -556,7 +567,7 @@ def forward_train(cfg: ModelConfig, params: Transformer, batch: Dict,
     cross_src = _encode(cfg, params, batch, remat, impl, sc)
     x, _, aux = _stack(cfg, params, x, positions, None, 0, decode=False,
                        impl=impl, moe_offset=moe_offset, remat=remat,
-                       cross_src=cross_src, sc=sc)
+                       cross_src=cross_src, sc=sc, with_aux=True)
     x = sc(L.rms_norm(x, params.final_norm, cfg.norm_eps), "block_in")
     targets = batch["targets"]
     if cfg.frontend == "vision_stub":

@@ -68,6 +68,7 @@ from ..configs import get_config
 from ..core.admission import GCRAdmission, NoAdmission
 from ..core.pod_aware import GCRPod
 from ..models import decode_step, prefill
+from ..runtime import trace
 
 # -- the H100 constants of StepCostModel (module docstring) ------------------
 # the replica they describe: one H100 serving CALIBRATION_ARCH, whose step
@@ -970,7 +971,19 @@ class TorchServeEngine:
     @torch.no_grad()
     def generate(self, prompts: np.ndarray, gen_len: int) -> np.ndarray:
         """prompts: (n_streams, prompt_len) int32.  Greedy decode; streams
-        beyond the active limit are parked and admitted as slots free."""
+        beyond the active limit are parked and admitted as slots free.
+
+        Under a recording profiler the call is the span
+        ``repro_torch.engine.generate``, each prefill and decode call a
+        ``repro_torch.engine.prefill`` / ``.decode`` span inside it, each
+        admitted stream a ``repro_torch.admission.admit`` instant, and the
+        counters of ``runtime.trace`` are reset at entry."""
+        if trace.recording():
+            trace.reset()
+        with trace.span("repro_torch.engine.generate"):
+            return self._generate(prompts, gen_len)
+
+    def _generate(self, prompts: np.ndarray, gen_len: int) -> np.ndarray:
         n = prompts.shape[0]
         out = np.zeros((n, gen_len), np.int32)
         waiting = list(range(n))
@@ -983,6 +996,7 @@ class TorchServeEngine:
             while waiting:
                 sid = waiting[0]
                 if self.admission.offer(sid):
+                    trace.instant("repro_torch.admission.admit")
                     newly.append(sid)
                     waiting.pop(0)
                 else:
@@ -993,7 +1007,8 @@ class TorchServeEngine:
             # (re)prefill the active batch
             batch = {"tokens": torch.as_tensor(prompts[active],
                                                device=self.device)}
-            logits, cache = self._prefill(self.params, batch)
+            with trace.span("repro_torch.engine.prefill"):
+                logits, cache = self._prefill(self.params, batch)
             tok = self._greedy(logits)
             for _ in range(gen_len):
                 tok_host = tok.cpu().numpy()
@@ -1001,7 +1016,8 @@ class TorchServeEngine:
                     if progress[sid] < gen_len:
                         out[sid, progress[sid]] = tok_host[j, 0]
                         progress[sid] += 1
-                logits, cache = self._decode(self.params, cache, tok)
+                with trace.span("repro_torch.engine.decode"):
+                    logits, cache = self._decode(self.params, cache, tok)
                 tok = self._greedy(logits)
             done = [sid for sid in active if progress[sid] >= gen_len]
             for sid in done:

@@ -153,7 +153,7 @@ def test_stack_aux_is_the_layer_mean_of_the_reference():
             jparams, jparams["embed"][jnp.asarray(toks)])
     x = params.embed[torch.from_numpy(toks)]
     _, _, aux = T._stack(cfg, params, x, torch.arange(24, dtype=torch.int32),
-                         None, 0, decode=False, moe_offset=5)
+                         None, 0, decode=False, moe_offset=5, with_aux=True)
     assert set(aux) == set(jaux) and float(jaux["moe_drop_frac"]) > 0
     for name in jaux:
         _close(aux[name], jaux[name])
