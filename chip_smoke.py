@@ -30,12 +30,13 @@ sources (one ``nvcc`` each, started together) and then:
    ran) and in CUDA events, beside the card's bound;
 4. holds the grouped expert matmul (MoE) kernels against their plain
    version in f32 and bf16 (bf16 has a wide kernel for many rows an
-   expert and a narrow one for few; each case checks which ran): the
-   reference sweep, ragged capacities, 64-row half-tiles ending inside a
-   batch row, rows on each side of the narrow kernel's limit, its N at 8
-   to 64, strided 4-d expert buffers and granite-moe's and (bf16)
-   mixtral-8x7b's prefill and decode shapes; then times both products
-   (wi and wo) at those four shapes, with
+   expert and a narrow one for up to 256; each case checks which ran):
+   the reference sweep, ragged capacities, 64-row half-tiles ending
+   inside a batch row, rows on each side of the narrow kernel's limit,
+   its N at 8 to 256, strided 4-d expert buffers and granite-moe's and
+   (bf16) mixtral-8x7b's prefill and decode shapes (mixtral's decode also
+   at 32 slots); then times both products (wi and wo) at those shapes,
+   with
    the kernel chosen and the host's time a call, beside the plain version,
    ``torch.bmm`` (a yardstick only) and the card's bound;
 5. holds the Mamba2 SSD scan kernel against its plain version in f32 and
@@ -192,19 +193,25 @@ GMM_SWEEP = [(4, 128, 256, 128), (2, 256, 512, 256)]
 # _capacity(1 token) at decode
 GMM_PREFILL = (3, 32, 320, 1024, 512)
 GMM_DECODE = (3, 32, 8, 1024, 512)
-# the served MoE archs' expert buffers, by the same rule: (arch, prefill,
-# decode, the dtypes held); mixtral-8x7b's (E 8, d_model 4096, moe_d_ff
-# 14336) run in bf16 alone (no path runs them in f32): its decode wo is
-# the narrow kernel 224 k-tiles deep
+# the served MoE archs' expert buffers, by the same rule: (arch, ((label,
+# shape), ...), the dtypes held); mixtral-8x7b's (E 8, d_model 4096,
+# moe_d_ff 14336) run in bf16 alone (no path runs them in f32): its decode
+# wo is the narrow kernel 224 k-tiles deep, and at 32 slots (the chat
+# cell's decode) its N is 256
 GMM_SERVED = [
-    ("granite-moe-1b-a400m", GMM_PREFILL, GMM_DECODE,
+    ("granite-moe-1b-a400m",
+     (("prefill", GMM_PREFILL), ("decode", GMM_DECODE)),
      ("torch.float32", "torch.bfloat16")),
-    ("mixtral-8x7b", (3, 8, 320, 4096, 14336), (3, 8, 8, 4096, 14336),
+    ("mixtral-8x7b", (("prefill", (3, 8, 320, 4096, 14336)),
+                      ("decode", (3, 8, 8, 4096, 14336)),
+                      ("decode32", (32, 8, 8, 4096, 14336))),
      ("torch.bfloat16",)),
 ]
 # (B, C) whose B * C rows sit on each side of the narrow kernel's limit of
-# 64 (64 and 72, twice), and its N at 8, 16, 24 and 64
-GMM_ROWS = [(1, 64), (1, 72), (8, 8), (3, 24), (1, 8), (2, 8), (3, 8)]
+# 256 (256 and 264, twice), and its N at 8, 24 and 64 (run at 64), 72 and
+# 128 (at 128), 200 (at 256)
+GMM_ROWS = [(1, 256), (1, 264), (32, 8), (33, 8), (1, 8), (3, 8), (8, 8),
+            (9, 8), (16, 8), (25, 8)]
 
 # SSD scan: f32 atol = rtol (tests/test_kernels.py; the kernel's chunk of
 # 64 against the plain version's 256 moves y by about 4e-5); bf16
@@ -823,30 +830,30 @@ def gmm_kernel_phase(torch, gm, gen):
         for C in (8, 24, 320):
             compare(f"ragged E4 C{C} D512 F256 {short}",
                     rnd((4, C, 512), dtype), rnd((4, 512, 256), dtype, 0.05))
-        # half-tiles of 64 rows that end inside a batch row (wide kernel)
+        # half-tiles of 64 rows that end inside a batch row (wide kernel:
+        # B 8, past the narrow kernel's 256 rows)
         for C in (40, 200, 328):
-            compare(f"ragged B3 E4 C{C} D256 F384 {short}",
-                    rnd((3, 4, C, 256), dtype),
+            compare(f"ragged B8 E4 C{C} D256 F384 {short}",
+                    rnd((8, 4, C, 256), dtype),
                     rnd((4, 256, 384), dtype, 0.05))
         # rows an expert holds on each side of the narrow kernel's limit,
-        # and the narrow kernel's N at 8, 16, 24 and 64
+        # and the narrow kernel's N
         for B, C in GMM_ROWS:
             compare(f"rows B{B} C{C} ({B * C}) E8 D1024 F512 {short}",
                     rnd((B, 8, C, 1024), dtype),
                     rnd((8, 1024, 512), dtype, 1024 ** -0.5))
         # a (B,E,C,D) buffer read in place through its strides, by each
-        # bf16 kernel
-        big = rnd((3, 5, 48, 144), dtype)
-        compare(f"strided 4-d x (3,4,40,128) of (3,5,48,144) {short}",
-                big[:, 1:, 3:43, 8:136], rnd((4, 128, 96), dtype, 0.05))
-        compare(f"strided 4-d x (3,4,8,128) of (3,5,48,144) {short}",
-                big[:, 1:, 3:11, 8:136], rnd((4, 128, 96), dtype, 0.05))
+        # bf16 kernel (288 rows an expert: wide; 120 and 24: narrow)
+        big = rnd((3, 5, 104, 144), dtype)
+        for C in (96, 40, 8):
+            compare(f"strided 4-d x (3,4,{C},128) of (3,5,104,144) {short}",
+                    big[:, 1:, 3:3 + C, 8:136],
+                    rnd((4, 128, 96), dtype, 0.05))
         # the served MoE archs' shapes: both products at prefill and decode
-        for arch, prefill, decode, dtypes in GMM_SERVED:
+        for arch, shapes, dtypes in GMM_SERVED:
             if str(dtype) not in dtypes:
                 continue
-            for label, (B, E, C, D, F) in (("prefill", prefill),
-                                           ("decode", decode)):
+            for label, (B, E, C, D, F) in shapes:
                 x = rnd((B, E, C, D), dtype)
                 wi = rnd((E, D, F), dtype, D ** -0.5)
                 h = rnd((B, E, C, F), dtype)
@@ -864,7 +871,7 @@ def gmm_kernel_phase(torch, gm, gen):
 def gmm_timing_phase(torch, gm, gen):
     """Both products of each served MoE arch's layer (GMM_SERVED), wi (x @
     w_gate, D -> F) and wo (h @ wo, F -> D), at its prefill and decode
-    shapes: kernel, plain
+    shapes (mixtral's decode also at 32 slots): kernel, plain
     version and torch.bmm (a yardstick, over an expert-major copy of x
     made outside the timed region) beside the bound.  Times are device
     time (``device_ms``); the kernel's CUDA-event time per call and the
@@ -875,11 +882,10 @@ def gmm_timing_phase(torch, gm, gen):
     Returns one entry an arch, product and shape; the first is granite's
     prefill wi."""
     out = []
-    for arch, prefill, decode, _ in GMM_SERVED:
+    for arch, shapes, _ in GMM_SERVED:
         print(f"gmm timing, {arch}'s expert products, bfloat16, cold L2 "
               "(device time, mean of 20 calls):")
-        for label, (B, E, C, Dm, Ff) in (("prefill", prefill),
-                                         ("decode", decode)):
+        for label, (B, E, C, Dm, Ff) in shapes:
             for product, (D, F) in (("wi", (Dm, Ff)), ("wo", (Ff, Dm))):
                 flops, nbytes = gm.work(B, E, C, D, F)
                 sets = []
@@ -1284,17 +1290,7 @@ def serve_phase(torch, np, kernels, arch, expect, n_layers=None,
             routing.append(out[3].sort(dim=-1).values)
         return out
 
-    # the expert products' launches by the kernel each call chose
-    gm, gmm_kernels = kernels["gmm"], {}
-    grouped_matmul = moe_mod.grouped_matmul
-
-    def counting_grouped_matmul(x, w, **kwargs):
-        before = gm.launches
-        out = grouped_matmul(x, w, **kwargs)
-        if gm.launches > before:
-            gmm_kernels[gm.last_kernel] = (gmm_kernels.get(gm.last_kernel, 0)
-                                           + gm.launches - before)
-        return out
+    gm = kernels["gmm"]
 
     def timed_prefill(p, batch):
         nonlocal routing
@@ -1325,18 +1321,17 @@ def serve_phase(torch, np, kernels, arch, expect, n_layers=None,
 
     eng._prefill, eng._decode = timed_prefill, timed_decode
     moe_mod.router_topk = recording_router_topk
-    moe_mod.grouped_matmul = counting_grouped_matmul
     try:
         for mod in kernels.values():         # count the main path alone
             mod.launches = 0
-        gmm_kernels.clear()
+        gm.launches_by_kernel.clear()      # the expert products' by kernel
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out = eng.generate(prompts, GEN_LEN)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = {name: mod.launches for name, mod in kernels.items()}
-        by_kernel = dict(gmm_kernels)
+        by_kernel = dict(gm.launches_by_kernel)
         serve_peak = torch.cuda.max_memory_allocated()
         wave = {"tokens": first["tokens"]}
         with torch.no_grad():
@@ -1368,7 +1363,6 @@ def serve_phase(torch, np, kernels, arch, expect, n_layers=None,
                 run_prefill(params, wave)
     finally:
         moe_mod.router_topk = router_topk
-        moe_mod.grouped_matmul = grouped_matmul
 
     waves, steps = len(prefill_ms), len(decode_ms)
     want = {"flash": attention_blocks(cfg) * waves,
@@ -3008,7 +3002,8 @@ def main() -> int:
         **{k: gmm_times[0][k] for k in ("ms", "plain_ms", "library_ms",
                                         "bound_ms", "bound_by")},
         # the same figures for wi and wo at prefill (wide kernel) and
-        # decode (narrow kernel); the entry leads with prefill wi
+        # decode (narrow kernel), mixtral's decode also at 32 slots; the
+        # entry leads with prefill wi
         "by_shape": gmm_times,
         # granite-moe-1b-a400m's train step and the plain gmm backward
         "train": kind_train["granite-moe-1b-a400m"],

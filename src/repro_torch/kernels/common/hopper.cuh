@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: TMA tile
-// loads into shared memory, mbarriers, warpgroup matrix multiplies
-// (wgmma) with their shared-memory descriptors, register rebalancing
-// between warpgroups, and the host-side tensor-map encoder.
+// loads into shared memory (one block's, or multicast into a cluster's),
+// mbarriers (also a peer block's), cluster ranks and barriers, warpgroup
+// matrix multiplies (wgmma) with their shared-memory descriptors,
+// register rebalancing between warpgroups, and the host-side tensor-map
+// encoder.
 //
 // The libraries link against the CUDA runtime only (no -lcuda), so the
 // driver's cuTensorMapEncodeTiled is looked up at run time through
@@ -109,6 +111,22 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The same box into shared memory at the same offset in each block of
+// the cluster whose bit is set in `cta_mask`, read once from L2;
+// completion is counted on the barrier at `bar`'s offset in each of them.
+__device__ __forceinline__ void tma_load_4d_multicast(
+    void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2,
+    int c3, uint16_t cta_mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes.multicast::cluster"
+      " [%0], [%1, {%4, %5, %6, %7}], [%2], %3;\n"
+      ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)),
+      "h"(cta_mask), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // One box of shared memory out to a 4-d tensor map; parts of the box
 // outside the tensor are not written.  Completion is tracked by bulk
 // groups (bulk_commit, bulk_wait_read).
@@ -157,6 +175,50 @@ __device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map))
                : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// thread block clusters
+// ---------------------------------------------------------------------------
+
+// This block's rank in its cluster, the cluster's index along x and the
+// number of clusters along x.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_id_x() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_count_x() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(r));
+  return r;
+}
+
+// Arrive on the barrier at `bar`'s offset in block `cta` of the cluster.
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    uint32_t cta) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(cta)
+      : "memory");
+}
+
+// Every thread of every block of the cluster: what each wrote before is
+// visible to all after (shared memory, barriers' initialisation).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -330,7 +392,8 @@ __device__ __forceinline__ void wgmma_rs_tb<16>(float (&d)[8],
 // memory.  TA = 1 reads A M-major (M contiguous, transposed), TA = 0
 // K-major; TB likewise for B (1: N contiguous).  The accumulator layout
 // is wgmma_m64n128k16_ss's, N/8 column chunks of it.  N is 8 to 64 in
-// steps of 8, or 256; wgmma_ss<N, TA, TB>(...) picks the instruction.
+// steps of 8, 128, 192 or 256; wgmma_ss<N, TA, TB>(...) picks the
+// instruction.
 template <int N>
 struct WgmmaSS;
 
@@ -485,6 +548,58 @@ struct WgmmaSS<64> {
 };
 
 template <>
+struct WgmmaSS<128> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void run(float (&d)[64], uint64_t desc_a,
+                                             uint64_t desc_b, int accumulate) {
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n"
+      "}\n"
+      : HOPPER_F8(d, 0), HOPPER_F8(d, 8), HOPPER_F8(d, 16), HOPPER_F8(d, 24),
+        HOPPER_F8(d, 32), HOPPER_F8(d, 40), HOPPER_F8(d, 48),
+        HOPPER_F8(d, 56)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB));
+  }
+};
+
+template <>
+struct WgmmaSS<192> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void run(float (&d)[96], uint64_t desc_a,
+                                             uint64_t desc_b, int accumulate) {
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95}, "
+      "%96, %97, p, 1, 1, %99, %100;\n"
+      "}\n"
+      : HOPPER_F8(d, 0), HOPPER_F8(d, 8), HOPPER_F8(d, 16), HOPPER_F8(d, 24),
+        HOPPER_F8(d, 32), HOPPER_F8(d, 40), HOPPER_F8(d, 48),
+        HOPPER_F8(d, 56), HOPPER_F8(d, 64), HOPPER_F8(d, 72),
+        HOPPER_F8(d, 80), HOPPER_F8(d, 88)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB));
+  }
+};
+
+template <>
 struct WgmmaSS<256> {
   template <int TA, int TB>
   static __device__ __forceinline__ void run(float (&d)[128], uint64_t desc_a,
@@ -557,21 +672,22 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // A 4-d bf16 tensor map (dims innermost first, strides in elements for
-// dims 1..3) read in boxes of box[0] x box[1] x 1 x 1, swizzled by the
-// box's row width (box[0] x 2 bytes: 128, 64 or 32).  Rows past the end
+// dims 1..3) read in boxes of box0 x box1 x box2 x box3, swizzled by the
+// box's row width (box0 x 2 bytes: 128, 64 or 32).  Rows past the end
 // read as zeros.  Returns false if the driver refuses the map.
 inline bool encode_bf16_4d(CUtensorMap* map, const void* base,
                            const long long (&dims)[4],
                            const long long (&strides)[3], int box0,
-                           int box1) {
+                           int box1, int box2 = 1, int box3 = 1) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   cuuint64_t gdim[4], gstride[3];
   for (int i = 0; i < 4; ++i) gdim[i] = static_cast<cuuint64_t>(dims[i]);
   for (int i = 0; i < 3; ++i)
     gstride[i] = static_cast<cuuint64_t>(strides[i]) * 2;
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box0),
-                             static_cast<cuuint32_t>(box1), 1, 1};
+  const cuuint32_t box[4] = {
+      static_cast<cuuint32_t>(box0), static_cast<cuuint32_t>(box1),
+      static_cast<cuuint32_t>(box2), static_cast<cuuint32_t>(box3)};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUtensorMapSwizzle swizzle =
       box0 * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B

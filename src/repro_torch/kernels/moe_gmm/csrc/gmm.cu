@@ -49,6 +49,26 @@
 //   swizzle group, a row group), numbered across its items, so the ring
 //   runs on from one item into the next and every SM has tens of KB of
 //   weights in flight.
+// * narrow pair (72 to 256 rows: decode at 9 to 32 slots, short
+//   prompts).  The same swap at N = 128, 192 or 256 (the next above the
+//   expert's rows; rows past them are dropped).  The bound is still the
+//   weights read once: at mixtral's decode at 32 slots (D = 4096, F =
+//   14336, E = 8, N = 256) 946.6 MB, 0.28 ms a product, but the tensor
+//   cores' 240 GFLOP take 0.24 ms, nearly as long, so loads and products
+//   have to overlap, and the first design's one warpgroup, its 64-column
+//   items (which reload x from L2 once for every 64 columns: 4x the
+//   weights' bytes at N = 256) and its 320-KB ring at N = 256 do not fit.
+//   An item is (expert, 256 columns) over all of D, taken by a cluster of
+//   two blocks on adjacent 128-column slices; one block still sums each
+//   output in full.  In each block a producer warp keeps a ring of 4 to 6
+//   stages in flight (two 64-column weight tiles of its own, and the
+//   expert's rows of the k-tile as one 4-d box over (D, C, E, B), which
+//   the cluster's first block loads once and TMA multicasts into both);
+//   two consumer warpgroups each run m64nNk16 wgmmas on 64 of its columns
+//   (setmaxnreg as in the wide kernel).  So each weight tile leaves
+//   device memory once a product and x leaves L2 once for every 256
+//   columns: N x 128 bytes a k-tile against the weights' 256 x 128, never
+//   more.  The clusters that fit at once share the items evenly.
 // * f32: CUDA cores (tensor cores would round to tf32 and break the
 //   reference's 1e-5 normalised f32 tolerance), 4 x 4 outputs a thread.
 //
@@ -400,6 +420,162 @@ __global__ void __launch_bounds__(NR_THREADS)
 }
 
 // ===========================================================================
+// bf16, narrow pair: 72 to 256 rows, a cluster of two blocks shares x
+// ===========================================================================
+
+// A block is the wide kernel's: a producer group and two consumer groups
+// (WD_THREADS, setmaxnreg WD_PRODUCER_REGS / WD_CONSUMER_REGS).
+constexpr int NP_CLUSTER = 2;     // blocks a cluster, on adjacent columns
+constexpr int NP_COLS = 128;      // output columns a block, 64 a consumer group
+constexpr int NP_SPAN = NP_CLUSTER * NP_COLS;  // columns a cluster's item
+constexpr int NP_RING = 200 * 1024;  // shared memory for the ring
+
+struct PairParams {
+  CUtensorMap x, w;
+  __nv_bfloat16* o;
+  int B, E, C, D, F;
+  int rows_b;        // rows a batch row holds in N: 8 * ceil(C / 8)
+  int nf;            // NP_SPAN-column slices of F
+  int items;         // E * nf, one a cluster at a time
+  uint32_t x_bytes;  // an expert's x box of one k-tile: B * rows_b rows
+};
+
+template <int N>
+struct PairSmem {
+  static constexpr int X = N * TK * 2;        // the expert's rows, N x 64
+  static constexpr int STAGE = X + 2 * BOX;   // + a weight tile a group
+  static constexpr int STAGES = NP_RING / STAGE;  // 6, 5 or 4
+  static constexpr int BARS = STAGES * STAGE;
+  static constexpr int BYTES = BARS + 2 * STAGES * 8 + 1024;  // + align
+};
+
+template <int N>
+__global__ void __cluster_dims__(NP_CLUSTER, 1, 1)
+    __launch_bounds__(WD_THREADS, 1)
+    gmm_narrow_kernel_pair(const __grid_constant__ PairParams p) {
+  using L = PairSmem<N>;
+  static_assert(L::BYTES <= 232448, "shared memory");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* empty = full + L::STAGES;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const uint32_t rank = hopper::cluster_rank();
+  const int first = hopper::cluster_id_x();
+  const int step = hopper::cluster_count_x();
+  const int nk = (p.D + TK - 1) / TK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);  // the producer
+      // rank 0's x lands in both blocks: its stages wait for both
+      hopper::mbar_init(&empty[s], rank == 0
+                                       ? NP_CLUSTER * WD_CONSUMER_WARPS
+                                       : WD_CONSUMER_WARPS);
+    }
+    hopper::fence_barrier_init();
+  }
+  hopper::cluster_sync();  // the peer's barriers exist before any arrives
+
+  if (warp < 4) {
+    // ---- producer: one thread issues every load ------------------------
+    hopper::regs_dealloc<WD_PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      hopper::prefetch_tensormap(&p.x);
+      hopper::prefetch_tensormap(&p.w);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int it = first; it < p.items; it += step) {
+        const int e = it / p.nf;
+        const int n0 = (it - e * p.nf) * NP_SPAN + rank * NP_COLS;
+        const int left = (p.F - n0 + 63) / 64;  // w boxes inside F
+        const int nw = n0 >= p.F ? 0 : (left < 2 ? left : 2);
+        const uint32_t bytes = p.x_bytes + nw * BOX;
+        for (int kt = 0; kt < nk; ++kt) {
+          hopper::mbar_wait(&empty[stage], phase ^ 1);
+          unsigned char* buf = smem + stage * L::STAGE;
+          hopper::mbar_arrive_expect_tx(&full[stage], bytes);
+          const int k0 = kt * TK;
+          if (rank == 0)
+            hopper::tma_load_4d_multicast(buf, &p.x, &full[stage], k0, 0, e,
+                                          0, (1u << NP_CLUSTER) - 1);
+          for (int a = 0; a < nw; ++a)
+            hopper::tma_load_4d(buf + L::X + a * BOX, &p.w, &full[stage],
+                                n0 + 64 * a, k0, e, 0);
+          if (++stage == L::STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 columns a warpgroup, all N rows -----------------
+    hopper::regs_alloc<WD_CONSUMER_REGS>();
+    const int cg = warp / 4 - 1;  // consumer group 0 or 1
+    const int col0 = (warp % 4) * 16 + lane / 4, tq = lane % 4;
+    // a stage is free once this block's warps and, for rank 0's, the
+    // peer's warps are done with it
+    auto release = [&](int s) {
+      if (lane != 0) return;
+      hopper::mbar_arrive(&empty[s]);
+      if (rank != 0) hopper::mbar_arrive_cluster(&empty[s], 0);
+    };
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int it = first; it < p.items; it += step) {
+      const int e = it / p.nf;
+      const int n0 = (it - e * p.nf) * NP_SPAN + rank * NP_COLS + cg * 64;
+      float acc[N / 2];
+      int prev = 0;
+      for (int kt = 0; kt < nk; ++kt) {
+        hopper::mbar_wait(&full[stage], phase);
+        const unsigned char* buf = smem + stage * L::STAGE;
+        const unsigned char* wt = buf + L::X + cg * BOX;
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KSTEPS; ++kk)
+          hopper::wgmma_ss<N, 1, 0>(
+              acc, hopper::smem_desc(wt + kk * 16 * 128, 128),
+              hopper::smem_desc(buf + kk * 32, 128), kt > 0 || kk > 0);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();  // tile kt-1's products are done
+        if (kt > 0) release(prev);
+        prev = stage;
+        if (++stage == L::STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      release(prev);
+      // out^T fragments: thread holds columns col0 and col0 + 8 of rows
+      // 8j + 2tq and + 1; rows past C in a batch row, rows past the last
+      // batch row and columns past F are dropped
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = 8 * j + 2 * tq + r;
+          const int b = row / p.rows_b, c = row - b * p.rows_b;
+          if (b >= p.B || c >= p.C) continue;
+          __nv_bfloat16* orow =
+              p.o + ((static_cast<long long>(b) * p.E + e) * p.C + c) * p.F +
+              n0;
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            if (n0 + col0 + 8 * h < p.F)
+              orow[col0 + 8 * h] = __float2bfloat16_rn(acc[4 * j + 2 * h + r]);
+        }
+    }
+  }
+  // no block leaves while its peer may still write to it or arrive on it
+  hopper::cluster_sync();
+}
+
+// ===========================================================================
 // f32: CUDA cores
 // ===========================================================================
 
@@ -488,12 +664,15 @@ constexpr int ERR_TENSOR_MAP = -1;
 constexpr int MAX_DEVICES = 64;
 struct LaunchInfo {
   bool ready;
-  int sms, per_sm;
+  int sms, resident;  // blocks an SM holds at once (clusters: the device)
 };
 
+// For a kernel launched in clusters of `cluster` blocks, `resident` is the
+// clusters the whole device holds at once.
 template <typename Kernel>
 cudaError_t launch_info(Kernel kernel, int threads, int bytes,
-                        LaunchInfo (&cache)[MAX_DEVICES], LaunchInfo* out) {
+                        LaunchInfo (&cache)[MAX_DEVICES], LaunchInfo* out,
+                        int cluster = 1) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
@@ -505,10 +684,17 @@ cudaError_t launch_info(Kernel kernel, int threads, int bytes,
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&info.sms, cudaDevAttrMultiProcessorCount,
                                    device);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info.per_sm,
+    if (err == cudaSuccess && cluster == 1)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info.resident,
                                                           kernel, threads,
                                                           bytes);
+    if (err == cudaSuccess && cluster > 1) {
+      cudaLaunchConfig_t config{};
+      config.gridDim = dim3(info.sms / cluster * cluster);
+      config.blockDim = dim3(threads);
+      config.dynamicSmemBytes = bytes;
+      err = cudaOccupancyMaxActiveClusters(&info.resident, kernel, &config);
+    }
     if (err != cudaSuccess) return err;
     info.ready = true;
   }
@@ -516,11 +702,12 @@ cudaError_t launch_info(Kernel kernel, int threads, int bytes,
   return cudaSuccess;
 }
 
-// x (B,E,C,D) as a 4-d map, innermost first: (D, C, E, B).
-bool encode_x(CUtensorMap* map, const Params& a, int rows) {
+// x (B,E,C,D) as a 4-d map, innermost first: (D, C, E, B), read in boxes
+// of one k-tile x `rows` x one expert x `batch`.
+bool encode_x(CUtensorMap* map, const Params& a, int rows, int batch = 1) {
   const long long dims[4] = {a.D, a.C, a.E, a.B};
   const long long strides[3] = {a.sxc, a.sxe, a.sxb};
-  return hopper::encode_bf16_4d(map, a.x, dims, strides, TK, rows);
+  return hopper::encode_bf16_4d(map, a.x, dims, strides, TK, rows, 1, batch);
 }
 
 cudaError_t launch_wide(const Params& a, const CUtensorMap& wmap,
@@ -565,15 +752,61 @@ cudaError_t launch_narrow(const NarrowParams& p, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   // every block resident at once, each walking the same number of items
   // (uneven shares left the last blocks streaming alone)
-  const int slots = info.sms * (info.per_sm > 0 ? info.per_sm : 1);
+  const int slots = info.sms * (info.resident > 0 ? info.resident : 1);
   const int per = (p.items + slots - 1) / slots;
   const int grid = (p.items + per - 1) / per;
   gmm_narrow_kernel<N><<<grid, NR_THREADS, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
+template <int N>
+cudaError_t launch_pair(const PairParams& p, cudaStream_t stream) {
+  constexpr int bytes = PairSmem<N>::BYTES;
+  static LaunchInfo cache[MAX_DEVICES];
+  LaunchInfo info;
+  const cudaError_t err = launch_info(gmm_narrow_kernel_pair<N>, WD_THREADS,
+                                      bytes, cache, &info, NP_CLUSTER);
+  if (err != cudaSuccess) return err;
+  // every cluster resident at once, each walking the same number of items
+  const int slots = info.resident > 0 ? info.resident : info.sms / NP_CLUSTER;
+  const int per = (p.items + slots - 1) / slots;
+  const int clusters = (p.items + per - 1) / per;
+  gmm_narrow_kernel_pair<N>
+      <<<clusters * NP_CLUSTER, WD_THREADS, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// 72 to 256 rows an expert: the pair kernel at the next of N = 128, 192
+// and 256; the rows past the x box's are never written and dropped.
+cudaError_t launch_pair_any(const Params& a, const CUtensorMap& wmap,
+                            cudaStream_t stream, int* refused) {
+  PairParams p{};
+  p.rows_b = (a.C + 7) / 8 * 8;
+  if (!encode_x(&p.x, a, p.rows_b, a.B)) {
+    *refused = 1;
+    return cudaSuccess;
+  }
+  p.w = wmap;
+  p.o = static_cast<__nv_bfloat16*>(a.o);
+  p.B = a.B;
+  p.E = a.E;
+  p.C = a.C;
+  p.D = a.D;
+  p.F = a.F;
+  p.nf = (a.F + NP_SPAN - 1) / NP_SPAN;
+  p.items = a.E * p.nf;
+  const int n = a.B * p.rows_b;
+  p.x_bytes = static_cast<uint32_t>(n) * TK * 2;
+  if (n <= 128) return launch_pair<128>(p, stream);
+  if (n <= 192) return launch_pair<192>(p, stream);
+  if (n <= 256) return launch_pair<256>(p, stream);
+  return cudaErrorInvalidValue;
+}
+
 cudaError_t launch_narrow_any(const Params& a, const CUtensorMap& wmap,
                               cudaStream_t stream, int* refused) {
+  if (a.B * ((a.C + 7) / 8) * 8 > 64)
+    return launch_pair_any(a, wmap, stream, refused);
   NarrowParams p{};
   if (!encode_x(&p.x, a, 8)) {
     *refused = 1;
@@ -623,7 +856,8 @@ extern "C" int moe_gmm_encode_weights(void* map, const void* w, int E, int D,
 }
 
 // Launches one kernel: `kernel` 0 is f32, 1 the bf16 wide kernel, 2 the
-// bf16 narrow kernel; `wmap` is w's map from moe_gmm_encode_weights (bf16 only).  Returns 0
+// bf16 narrow kernel (at most 256 rows an expert); `wmap` is w's map from
+// moe_gmm_encode_weights (bf16 only).  Returns 0
 // when the launch was accepted, else a cudaError_t or ERR_TENSOR_MAP.
 // The caller has checked shapes, strides, alignment and dtypes.
 extern "C" int moe_gmm(const void* x, const void* w, void* o, int B, int E,

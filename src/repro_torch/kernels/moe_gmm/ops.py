@@ -11,9 +11,10 @@ through their strides, giving (B,E,C,F): no copy folds B into C.
 
 bf16 has two kernels, picked by ``choose_kernel`` from the rows an expert
 holds: ``wide`` (a persistent wgmma GEMM fed by TMA, for prefill) and
-``narrow`` (the weights as wgmma's 64-row side and the few rows as its N,
-for decode).  Both read x and w through TMA tensor maps, which the
-driver's ``cuTensorMapEncodeTiled`` encodes; a map it refuses raises.
+``narrow`` (the weights as wgmma's 64-row side and up to 256 rows as its
+N, for decode and short prompts).  Both read x and w through TMA tensor
+maps, which ``cuTensorMapEncodeTiled`` encodes; a map it refuses
+raises.
 The weights' map is cached keyed by exactly what it is made from
 (``weight_map_key``), so a hit is always right.  f32 has one kernel on
 the CUDA cores.
@@ -31,7 +32,8 @@ costs the host less than a ``custom_op``'s.  ``work`` is the kernels' work
 count (FLOPs and bytes), which the operator's FLOP formula, the dry run
 and the card's bound read.
 
-``launches`` counts the kernel launches this process made;
+``launches`` counts the kernel launches this process made,
+``launches_by_kernel`` the same by kernel (``choose_kernel``'s names);
 ``last_kernel`` names the kernel the last launch ran.
 """
 
@@ -49,16 +51,19 @@ from .. import _build, _sharded
 from .ref import gmm_ref
 
 launches = 0
+launches_by_kernel: dict[str, int] = {}
 last_kernel: str | None = None
 
 BLOCK_M = 64        # rows (b, c) of one expert per f32 block; see gmm.cu
 TILE_K = 64         # depths a k-tile of the bf16 kernels (one 128-byte row)
 # The narrow kernel puts an expert's rows, padded to 8 in each batch row,
-# on wgmma's N side, and reads each weight tile once for all of them.  It
-# is instantiated up to N = 64 (granite's decode holds 24 rows); past
-# that the wide kernel's 128 x 256 tiles, whose 64-row halves hold the
-# rows, serve.
-NARROW_MAX_ROWS = 64
+# on wgmma's N side and reads each weight tile once for all of them: one
+# warpgroup a block at every N up to 64 (granite's decode at 3 slots holds
+# 24 rows), a cluster of two blocks sharing the rows at N = 128, 192 and
+# 256 (wgmma's largest; mixtral's decode at 32 slots holds 256).  It never
+# computes more rows than the wide kernel, whose 64-row half-tiles each
+# hold one batch row's rows; past 256 rows the wide kernel serves.
+NARROW_MAX_ROWS = 256
 MAP_CACHE_SIZE = 256   # weights' tensor maps kept (granite holds 72)
 _KERNEL_IDS = {"f32": 0, "wide": 1, "narrow": 2}
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -213,6 +218,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"moe_gmm ({kernel}) launch failed: "
                            f"{lib.moe_gmm_error_string(err).decode()}")
     launches += 1
+    launches_by_kernel[kernel] = launches_by_kernel.get(kernel, 0) + 1
     last_kernel = kernel
     return out if x.dim() == 4 else out[0]
 

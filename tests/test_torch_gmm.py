@@ -10,6 +10,9 @@ Tolerances, normalised by max |want| as in tests/test_kernels.py: f32
 1e-5 (summation order), bf16 2e-2 (one bf16 rounding of the output).
 """
 
+import contextlib
+import types
+
 import numpy as np
 import pytest
 
@@ -113,22 +116,79 @@ def test_kernel_checks_raise_on_what_it_does_not_take(case, match):
 @pytest.mark.parametrize("B,C,want", [
     (3, 8, "narrow"),      # granite's decode: 24 rows an expert
     (3, 320, "wide"),      # granite's prefill: 960 rows
-    (1, 64, "narrow"),     # 64 rows: the narrow kernel's limit
+    (1, 64, "narrow"),     # the first design's limit
     (8, 8, "narrow"),
-    (1, 72, "wide"),       # 72 rows: one past it
-    (3, 24, "wide"),
     (2, 28, "narrow"),     # C padded to 32 a batch row: 64 rows
-    (3, 20, "wide"),       # padded to 24 a batch row: 72 rows
+    (1, 72, "narrow"),     # past it: the cluster design
+    (3, 24, "narrow"),
+    (3, 20, "narrow"),     # padded to 24 a batch row: 72 rows
+    (32, 8, "narrow"),     # mixtral's decode at 32 slots: 256 rows
+    (1, 256, "narrow"),    # 256 rows: the narrow kernel's limit
+    (33, 8, "wide"),       # 264 rows: one group past it
+    (1, 264, "wide"),
+    (2, 124, "narrow"),    # C padded to 128 a batch row: 256 rows
+    (3, 84, "wide"),       # padded to 88 a batch row: 264 rows
+    (32, 160, "wide"),     # mixtral's chat prefill: 5,120 rows
 ])
 def test_bf16_kernel_choice_follows_the_rows_an_expert_holds(B, C, want):
-    """bf16 picks the narrow kernel up to NARROW_MAX_ROWS rows (each batch
-    row's C padded to 8, the narrow kernel's N), the wide one past it;
-    f32 always has its own kernel."""
+    """bf16 picks the narrow kernel up to NARROW_MAX_ROWS (256) rows (each
+    batch row's C padded to 8, the narrow kernel's N), the wide one past
+    it; f32 always has its own kernel."""
     assert ops.narrow_rows(B, C) == B * -(-C // 8) * 8
     assert ops.choose_kernel(torch.bfloat16, B, C) == want
     assert (ops.narrow_rows(B, C) <= ops.NARROW_MAX_ROWS) == \
         (want == "narrow")
     assert ops.choose_kernel(torch.float32, B, C) == "f32"
+
+
+class _StubLibrary:
+    """The kernel library's C entry points, recording each launch's
+    arguments and accepting it, so that the wrapper's own accounting runs
+    on the CPU."""
+
+    def __init__(self):
+        self.launched = []
+
+    def moe_gmm(self, *args):
+        self.launched.append(args)
+        return 0
+
+    def moe_gmm_encode_weights(self, *args):
+        return 0
+
+
+@pytest.mark.parametrize("B,C,dtype,kernel", [
+    (32, 8, torch.bfloat16, "narrow"),
+    (3, 8, torch.bfloat16, "narrow"),
+    (33, 8, torch.bfloat16, "wide"),
+    (2, 8, torch.float32, "f32"),
+])
+def test_launches_by_kernel_counts_what_the_library_was_handed(
+        monkeypatch, B, C, dtype, kernel):
+    """Each launch counts once in ``launches`` and once under the kernel
+    ``choose_kernel`` named, which is the kernel id the library gets."""
+    lib = _StubLibrary()
+    monkeypatch.setattr(ops, "_kernel", lambda: lib)
+    monkeypatch.setattr(ops, "_check", lambda x, w: None)
+    monkeypatch.setattr(ops, "_maps", type(ops._maps)())
+    monkeypatch.setattr(ops, "launches", 0)
+    monkeypatch.setattr(ops, "launches_by_kernel", {})
+    monkeypatch.setattr(ops, "last_kernel", None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=0))
+    x = torch.zeros((B, 2, C, 64), dtype=dtype)
+    w = torch.zeros((2, 64, 32), dtype=dtype)
+    for n in (1, 2):
+        out = ops._launch(x, w)
+        assert tuple(out.shape) == (B, 2, C, 32)
+        assert ops.launches == n and ops.last_kernel == kernel
+        assert ops.launches_by_kernel == {kernel: n}
+        args = lib.launched[-1]
+        assert args[3:6] == (B, 2, C)
+        assert args[-3] == ops._KERNEL_IDS[kernel]
+        assert (args[-2] is None) == (kernel == "f32")
 
 
 @pytest.mark.parametrize("shape,strides,want", [

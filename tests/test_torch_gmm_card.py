@@ -1,9 +1,9 @@
 """The port's CUDA grouped expert matmul against its plain PyTorch
 version, on the card: the f32 kernel and both bf16 kernels (wide for
-many rows an expert, narrow for few), each case also checking which
-kernel ran and that it counted one launch.  These tests need a CUDA
-device and skip without one; they import no JAX, so they run on the GPU
-machine:
+many rows an expert, narrow for up to 256), each case also checking
+which kernel ran and that it counted one launch, in all and by kernel.
+These tests need a CUDA device and skip without one; they import no
+JAX, so they run on the GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gmm_card.py
 
@@ -81,19 +81,24 @@ def _run(B, E, C, D, F, w_scale, want_kernel, dtype="bfloat16"):
     w = torch.randn((E, D, F), generator=gen, device="cuda",
                     dtype=dt) * w_scale
     before = ops.launches
+    by_kernel = dict(ops.launches_by_kernel)
     got = ops.grouped_matmul(x, w)
     torch.cuda.synchronize()
     assert ops.launches == before + 1 and ops.last_kernel == want_kernel
+    by_kernel[want_kernel] = by_kernel.get(want_kernel, 0) + 1
+    assert ops.launches_by_kernel == by_kernel
     want = ops.grouped_matmul(x, w, impl="ref")
     assert got.shape == (B, E, C, F) and got.dtype == dt
     _assert_close(got, want, dtype)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("C,kernel", [(40, "wide"), (8, "narrow")])
+@pytest.mark.parametrize("C,kernel", [(96, "wide"), (40, "narrow"),
+                                      (8, "narrow")])
 def test_bf16_kernels_read_strided_expert_buffers(C, kernel):
-    """The strided (B,E,C,D) buffer in each bf16 kernel: 120 rows an
-    expert go to the wide one, 24 to the narrow one."""
+    """The strided (B,E,C,D) buffer in each bf16 kernel: 288 rows an
+    expert go to the wide one, 120 (the pair design, N 128) and 24 to the
+    narrow one."""
     gen = _card()
     B, E, D, F = 3, 4, 128, 96
     big = torch.randn((B, E + 1, C + 8, D + 16), generator=gen,
@@ -126,18 +131,23 @@ def test_bf16_kernels_at_granites_serving_shapes(B, E, C, D, F, kernel):
     (3, 8, 320, 14336, 4096, "wide"),    # prefill, wo
     (3, 8, 8, 4096, 14336, "narrow"),    # decode, wi: 224 column slices
     (3, 8, 8, 14336, 4096, "narrow"),    # decode, wo: 224 k-tiles deep
+    (32, 8, 8, 4096, 14336, "narrow"),   # decode at 32 slots: 256 rows
+    (32, 8, 8, 14336, 4096, "narrow"),
 ])
 def test_bf16_kernels_at_mixtrals_serving_shapes(B, E, C, D, F, kernel):
     """mixtral-8x7b's expert products when serving 3 slots: C =
-    _capacity(1024 tokens) = 320 at prefill and 8 at decode."""
+    _capacity(1024 tokens) = 320 at prefill and 8 at decode; and its
+    decode at 32 slots (the chat cell's), N = 256 in the narrow kernel."""
     _run(B, E, C, D, F, D ** -0.5, kernel)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,C,kernel", [
-    (1, 64, "narrow"), (1, 72, "wide"), (8, 8, "narrow"), (3, 24, "wide")])
+    (1, 256, "narrow"), (1, 264, "wide"), (32, 8, "narrow"), (33, 8, "wide"),
+    (1, 64, "narrow"), (1, 72, "narrow")])
 def test_bf16_rows_on_each_side_of_the_narrow_limit(B, C, kernel):
-    """64 rows an expert (the narrow kernel's N at its limit) and 72."""
+    """256 rows an expert (the narrow kernel's N at its limit) and 264;
+    64 and 72, on each side of its two designs' border."""
     _run(B, 8, C, 1024, 512, 1024 ** -0.5, kernel)
 
 
@@ -145,14 +155,17 @@ def test_bf16_rows_on_each_side_of_the_narrow_limit(B, C, kernel):
 @pytest.mark.parametrize("C", [40, 200, 328])
 def test_bf16_wide_half_tiles_ending_inside_a_batch_row(C):
     """The wide kernel's 64-row half-tiles never cross a batch row; with C
-    not a multiple of 64 the last one of each row is partly past C."""
-    _run(3, 4, C, 256, 384, 0.05, "wide")
+    not a multiple of 64 the last one of each row is partly past C (B 8,
+    so even C 40 holds more rows than the narrow kernel takes)."""
+    _run(8, 4, C, 256, 384, 0.05, "wide")
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B", [1, 2, 3, 8])
+@pytest.mark.parametrize("B", [1, 2, 3, 8, 9, 16, 25, 32])
 def test_bf16_narrow_n(B):
-    """The narrow kernel's N (an expert's rows) at 8, 16, 24 and 64."""
+    """The narrow kernel's N (an expert's rows) at 8, 16, 24 and 64, and
+    in the pair design at 72, 128, 200 and 256 (instantiated at 128, 192
+    and 256: rows past an expert's are dropped)."""
     _run(B, 8, 8, 1024, 512, 1024 ** -0.5, "narrow")
 
 

@@ -5,6 +5,7 @@ Run from the root of a checkout, on a machine with the card and nvcc:
 
     python3 tools/gmm_probe.py variants [NAME ...]
     python3 tools/gmm_probe.py host [--src DIR]
+    python3 tools/gmm_probe.py crossover
 
 ``variants`` builds copies of ``csrc/gmm.cu`` with parts of the wide
 (prefill) kernel taken out and times each with ``chip_smoke.py``'s gmm
@@ -22,6 +23,11 @@ Only ``base`` computes the product; the others' times alone matter.
 under DIR (default ``src``; a parent commit unpacked elsewhere may be
 given) at granite's decode and prefill shapes, with the card running
 behind, and of the wrapper's parts where the tree has them.
+
+``crossover`` times both bf16 kernels at every shape of ``CROSSOVER``
+(mixtral-8x7b's wi and wo at up to 256 rows an expert, where either
+kernel takes the call; cold L2, device time), each forced in turn, beside
+the rows each computes and the kernel ``choose_kernel`` picks.
 """
 
 from __future__ import annotations
@@ -65,6 +71,9 @@ def _patches(src: str) -> dict:
 
 
 VARIANTS = ("base", "noproducts", "nostores", "halfweights")
+# (B, C) of mixtral's expert buffers that both kernels take: short single
+# prompts (B 1) and decode at 3 to 32 slots (C 8)
+CROSSOVER = ((1, 136), (1, 200), (1, 256), (3, 8), (8, 8), (16, 8), (32, 8))
 
 
 def _variant_source(name: str) -> Path:
@@ -141,6 +150,48 @@ def _host(src_dir: str) -> None:
                   f"{per_call_us(fn):.2f} us a call", flush=True)
 
 
+def _crossover() -> None:
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    import torch
+
+    import chip_smoke
+    from repro_torch.kernels.moe_gmm import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    choose = ops.choose_kernel
+    E, Dm, Ff = 8, 4096, 14336        # mixtral-8x7b's experts
+    print(chip_smoke.card_line())
+    print("gmm crossover, mixtral-8x7b's expert products, bfloat16, cold L2 "
+          "(device time, mean of 20 calls):", flush=True)
+    try:
+        for B, C in CROSSOVER:
+            for product, (D, F) in (("wi", (Dm, Ff)), ("wo", (Ff, Dm))):
+                n_sets = max(2, -(-4 * int(chip_smoke.L2_BYTES)
+                                  // ops.work(B, E, C, D, F)[1]))
+                sets = [(torch.randn((B, E, C, D), generator=gen,
+                                     device="cuda").bfloat16(),
+                         (torch.randn((E, D, F), generator=gen, device="cuda")
+                          * D ** -0.5).bfloat16()) for _ in range(n_sets)]
+                state = {"i": 0}
+
+                def call():
+                    state["i"] = (state["i"] + 1) % n_sets
+                    return ops.grouped_matmul(*sets[state["i"]])
+                ms = {}
+                for kernel in ("narrow", "wide"):
+                    ops.choose_kernel = lambda dtype, b, c, k=kernel: k
+                    ms[kernel] = chip_smoke.device_ms(torch, call)
+                ops.choose_kernel = choose
+                print(f"  B{B} C{C} {product}: rows narrow "
+                      f"{ops.narrow_rows(B, C)}, wide {B * -(-C // 64) * 64}"
+                      f": narrow {ms['narrow']:.4f} ms, wide "
+                      f"{ms['wide']:.4f} ms (chosen: "
+                      f"{choose(torch.bfloat16, B, C)})", flush=True)
+                del sets
+    finally:
+        ops.choose_kernel = choose
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -151,11 +202,14 @@ def main(argv=None) -> int:
     one.add_argument("name", choices=VARIANTS)
     host = sub.add_parser("host")
     host.add_argument("--src", default="src")
+    sub.add_parser("crossover")
     args = parser.parse_args(argv)
     if args.cmd == "_one":
         _one_variant(args.name)
     elif args.cmd == "host":
         _host(args.src)
+    elif args.cmd == "crossover":
+        _crossover()
     else:
         unknown = set(args.names) - set(VARIANTS)
         if unknown:
