@@ -7,11 +7,12 @@ card at the cell's own size (not run by the benchmark's runs):
 For each seed: the weights and one job of the cell's mix, served by the
 program as a run serves it, the run's sample of its streams, and the
 numbers the run compares (``harness.gap_numbers``) against the float32
-reference.  For each control seed also the control: the reference with
-every matrix rounded through float8 e4m3, the precision below the
-configuration's bf16, in the program's place: the token it puts first at
-each served position, judged by the same numbers.  One JSON line a seed,
-and all of them in ``--out``.
+reference of the configuration's ``reference`` module.  For each control
+seed also the control: that reference with every matrix rounded through
+float8 e4m3, the precision below the configuration's bf16, in the
+program's place: the token it puts first at each served position, judged
+by the same numbers.  One JSON line a seed, and all of them in
+``--out``.
 """
 
 import time
@@ -46,8 +47,9 @@ def main(argv=None, *, device="cuda", smoke=False) -> int:
     cfg_file = S.sized(S.config_file(bench, cell["config"]), smoke)
     mix = S.sized(S.traffic(cell["traffic"]), smoke)
     chk = S.check(ns.workload)
-    spec = S.model_spec(cfg_file)
-    cfg = harness.program_config(cfg_file["program_arch"], spec, smoke)
+    ref = S.reference(cfg_file)
+    spec = ref.spec(cfg_file)
+    cfg = harness.program_config(ref, cfg_file, spec, smoke)
     controls = {int(s) for s in ns.control_seeds.split(",") if s}
     rows = []
     for seed in [int(s) for s in ns.seeds.split(",")]:
@@ -64,16 +66,17 @@ def main(argv=None, *, device="cuda", smoke=False) -> int:
         gc.collect()
         seqs, served = harness.sampled(mix, jobs, chk, seed)
         t = time.perf_counter()
-        ref = harness.reference_logits(spec, W, mix, seqs, device)
+        logits = harness.reference_logits(ref, spec, W, mix, seqs, device)
         row = {"workload": ns.workload, "seed": seed,
-               "program": harness.gap_numbers(ref, served),
+               "program": harness.gap_numbers(logits, served),
                "job_s": t_job, "reference_s": time.perf_counter() - t}
         if seed in controls:
-            ctrl = harness.reference_logits(spec, W, mix, seqs, device,
+            ctrl = harness.reference_logits(ref, spec, W, mix, seqs, device,
                                             fp8=True)
-            row["control_fp8"] = harness.gap_numbers(ref, ctrl.argmax(-1))
+            row["control_fp8"] = harness.gap_numbers(logits,
+                                                     ctrl.argmax(-1))
             del ctrl
-        del ref, W
+        del logits, W
         gc.collect()
         if device.type == "cuda":
             row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9

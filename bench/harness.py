@@ -5,14 +5,25 @@ The system under test is ``repro_torch.serving.engine.TorchServeEngine``
 with GCR admission, serving bf16 weights that ``weights`` made on the
 card from the seed.  A job is one ``generate`` call over a traffic mix's
 prompts; jobs run back to back from the window's start, and the window
-ends with the first job that ends at or after ``--seconds``.
+ends with the first job that ends at or after ``--seconds``.  A cell
+whose end-to-end rate is ``device_tokens_per_s`` (the window's output
+tokens over the seconds in which an operation ran on the card) runs
+each job of its window under a profiler of the card alone; that cell's
+``tokens_per_s`` is read in its traced run, whose window is profiled
+not at all.
+
+Everything about the model's architecture comes from the module that
+the configuration's ``reference`` key names (``spec.reference``; its
+contract is in ``spec``'s docstring): the widths (``spec``), the check
+of the port's configuration (``check_program``), the float32 reference
+and its control (``Weights``, ``logits``) and ``mfu``'s FLOPs
+(``model_flops``).  This module names no architecture.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import gc
-import importlib.util
 import json
 import subprocess
 import sys
@@ -23,41 +34,25 @@ import torch
 
 from . import spec as S
 from . import timing, traffic, weights
-from .reference import decoder
 
 BANNED = ("jax", "jaxlib", "flax", "repro")
 WARMUP_STEPS = 4          # decode steps after the warm-up's prefill
-
-# the benchmark's widths against the fields of the port's ModelConfig
-PROGRAM_FIELDS = {"n_layers": "n_layers", "d_model": "d_model",
-                  "n_heads": "n_heads", "n_kv_heads": "n_kv_heads",
-                  "head_dim": "head_dim", "vocab_size": "vocab_size",
-                  "window": "sliding_window", "rope_theta": "rope_theta",
-                  "norm_eps": "norm_eps", "dtype": "dtype"}
-MOE_FIELDS = {"n_experts": "n_experts", "top_k": "n_experts_active",
-              "expert_d_ff": "moe_d_ff",
-              "capacity_factor": "moe_capacity_factor"}
 
 
 class BenchError(RuntimeError):
     pass
 
 
-def program_config(arch: str, spec: dict, smoke: bool):
-    """The port's configuration of ``arch`` cut to the benchmark's depth,
-    checked field by field against the benchmark's widths."""
+def program_config(ref, cfg_file: dict, spec: dict, smoke: bool):
+    """The port's configuration of the file's ``program_arch`` cut to the
+    benchmark's depth, checked by the reference module ``ref``
+    (``check_program``) against the benchmark's widths."""
     from repro_torch import configs
 
+    arch = cfg_file["program_arch"]
     cfg = (configs.get_smoke_config if smoke else configs.get_config)(arch)
     cfg = dataclasses.replace(cfg, n_layers=spec["n_layers"])
-    moe = bool(spec["n_experts"])
-    fields = dict(PROGRAM_FIELDS, **(MOE_FIELDS if moe else
-                                     {"d_ff": "d_ff"}))
-    bad = {k: (spec[k], getattr(cfg, f)) for k, f in fields.items()
-           if spec[k] != getattr(cfg, f)}
-    kind = ("moe",) if moe else ("attn",)
-    if cfg.block_pattern != kind or cfg.qk_norm or cfg.frontend != "none":
-        bad["kind"] = (kind, cfg.block_pattern, cfg.qk_norm, cfg.frontend)
+    bad = ref.check_program(spec, cfg)
     if bad:
         raise BenchError(f"{arch}: the port's config differs from the "
                          f"benchmark's (benchmark, port): {bad}")
@@ -76,45 +71,62 @@ def power_limit_w():
 
 
 def _load_reader(name: str):
+    """``metrics/<name>.py``'s ``read``; for a quantity split by cell
+    (``decode_step_ms.chat``), the reader of the part before the dot."""
     path = S.BENCH_DIR / "metrics" / f"{name}.py"
-    mod_spec = importlib.util.spec_from_file_location(
-        f"bench_metric_{len(sys.modules)}", path)
-    mod = importlib.util.module_from_spec(mod_spec)
-    mod_spec.loader.exec_module(mod)
-    return mod.read
+    if not path.exists():
+        path = path.with_name(f"{name.split('.')[0]}.py")
+    return S.load_module(path).read
+
+
+def run_job(eng, prompts, gen_len, device, busy):
+    """One ``generate`` call; where ``busy`` is a list, under a profiler
+    of the card's operations alone, with the seconds in which an
+    operation ran on the card appended to it.  A profile a job, so that
+    none outgrows the profiler's buffers."""
+    if busy is None:
+        return eng.generate(prompts, gen_len)
+    trace = timing.DeviceTrace()
+    with trace.profile(device, host=False) as prof:
+        out = eng.generate(prompts, gen_len)
+        timing.sync(device)
+    trace.read(prof)
+    busy.append(trace.busy_s)
+    return out
 
 
 class Recorders:
     """Records, around one job, each flash call's shapes and each expert
     product's rows that hold a token and experts held, by wrapping the
-    names the model calls (the port's own counters are not read).  A
-    name the program no longer has is left alone, and the metric that
-    reads it stays silent."""
+    kernels' names wherever a loaded ``repro_torch.models`` module binds
+    them (the port's own counters are not read).  A name the program no
+    longer binds is left alone, and the metric that reads it stays
+    silent."""
 
-    NAMES = (("layers", "flash_attention_fwd"), ("moe", "grouped_matmul"),
-             ("moe", "_dispatch"))
+    NAMES = ("flash_attention_fwd", "grouped_matmul", "_dispatch")
 
     def __init__(self) -> None:
-        from repro_torch.models import layers, moe
+        import repro_torch.models  # noqa: F401  (loads the model modules)
 
-        self.mods = {"layers": layers, "moe": moe}
-        self.saved = tuple(getattr(self.mods[m], n, None)
-                           for m, n in self.NAMES)
+        self.bound = [(mod, n, vars(mod)[n])
+                      for m, mod in sorted(sys.modules.items())
+                      if m == "repro_torch.models"
+                      or m.startswith("repro_torch.models.")
+                      for n in self.NAMES if callable(vars(mod).get(n))]
         self.flash, self.dispatches, self.gmm = [], [], []
 
-    def __enter__(self):
-        flash, gmm, dispatch = self.saved
-        if None in self.saved:
-            return self
-
+    def _flash(self, flash):
         def rec_flash(q, k, v, q_pos, k_pos, *, window=0, causal=True,
                       **kw):
             B, S_, Hq, D = q.shape
             self.flash.append((B, S_, k.shape[1], Hq, k.shape[2], D,
-                               window, causal, q.element_size()))
+                               v.shape[-1], window, causal,
+                               q.element_size()))
             return flash(q, k, v, q_pos, k_pos, window=window,
                          causal=causal, **kw)
+        return rec_flash
 
+    def _dispatch(self, dispatch):
         def rec_dispatch(*args):
             out = dispatch(*args)
             # (expert_in, gates, combine index, logits, probs, expert_idx,
@@ -124,21 +136,26 @@ class Recorders:
                      and out[5].shape == out[6].shape)
             self.dispatches.append(out[5:7] if known else None)
             return out
+        return rec_dispatch
 
+    def _grouped_matmul(self, gmm):
         def rec_gmm(x, w, **kw):
             self.gmm.append((len(self.dispatches) - 1, w.shape[1],
                              w.shape[2], x.element_size()))
             return gmm(x, w, **kw)
+        return rec_gmm
 
-        for (m, n), fn in zip(self.NAMES, (rec_flash, rec_gmm,
-                                           rec_dispatch)):
-            setattr(self.mods[m], n, fn)
+    def __enter__(self):
+        wrap = {"flash_attention_fwd": self._flash,
+                "grouped_matmul": self._grouped_matmul,
+                "_dispatch": self._dispatch}
+        for mod, n, fn in self.bound:
+            setattr(mod, n, wrap[n](fn))
         return self
 
     def __exit__(self, *exc):
-        if None not in self.saved:
-            for (m, n), fn in zip(self.NAMES, self.saved):
-                setattr(self.mods[m], n, fn)
+        for mod, n, fn in self.bound:
+            setattr(mod, n, fn)
         return False
 
     def gmm_calls(self) -> list:
@@ -166,8 +183,9 @@ def run_cell(ns, *, device: torch.device, t_start: float,
     cfg_file = S.sized(S.config_file(bench, cell["config"]), smoke)
     mix = S.sized(S.traffic(cell["traffic"]), smoke)
     chk = S.check(ns.workload)
-    spec = S.model_spec(cfg_file)
-    cfg = program_config(cfg_file["program_arch"], spec, smoke)
+    ref = S.reference(cfg_file)
+    spec = ref.spec(cfg_file)
+    cfg = program_config(ref, cfg_file, spec, smoke)
     wanted = S.metrics_for(bench, ns.workload, bool(ns.trace))
     cuda = device.type == "cuda"
     power = power_limit_w() if cuda else None
@@ -185,8 +203,13 @@ def run_cell(ns, *, device: torch.device, t_start: float,
                                 max_len=mix["prompt_len"] + gen_len,
                                 admission_kind="gcr", device=device)
 
+    # a cell whose end-to-end rate is the card's profiles each job of the
+    # window (``run_job``), and its warm-up, which starts the profiler
+    busy = [] if any(m["name"] == "device_tokens_per_s"
+                     for m in wanted) else None
     t_warm = timing.now()
-    engine().generate(traffic.warmup_prompts(mix, vocab, seed), WARMUP_STEPS)
+    run_job(engine(), traffic.warmup_prompts(mix, vocab, seed), WARMUP_STEPS,
+            device, None if busy is None else [])
     t_warm = timing.synced_now(device) - t_warm
     eng = engine()
     spans = timing.Spans(device)
@@ -205,7 +228,7 @@ def run_cell(ns, *, device: torch.device, t_start: float,
     jobs = []
     while True:
         prompts = traffic.job_prompts(mix, vocab, seed, len(jobs))
-        jobs.append((prompts, eng.generate(prompts, gen_len)))
+        jobs.append((prompts, run_job(eng, prompts, gen_len, device, busy)))
         t1 = timing.synced_now(device)
         if t1 - t0 >= ns.seconds:
             break
@@ -237,8 +260,8 @@ def run_cell(ns, *, device: torch.device, t_start: float,
     if cuda:
         torch.cuda.empty_cache()
     t_ref = timing.now()
-    numbers, attempted, failed = check_outputs(spec, W, mix, jobs, chk,
-                                               seed, device)
+    numbers, attempted, failed = check_outputs(ref, spec, W, mix, jobs,
+                                               chk, seed, device)
     t_ref = timing.synced_now(device) - t_ref
     limits = chk["limits"]
     checks = {k: {"value": numbers[k], "limit": limits[k]} for k in limits}
@@ -248,11 +271,12 @@ def run_cell(ns, *, device: torch.device, t_start: float,
     tokens = len(jobs) * mix["streams"] * gen_len
     info = {"jobs": len(jobs), "window_s": window_s, "tokens": tokens,
             "admission": admission, "launches": launches,
-            "numbers": numbers, "weights_s": t_w, "warmup_s": t_warm,
-            "reference_s": t_ref}
+            "numbers": numbers, "busy_s": busy, "weights_s": t_w,
+            "warmup_s": t_warm, "reference_s": t_ref}
     if ns.trace:
         record = SimpleNamespace(
-            spec=spec, spans=spans.items, window_s=window_s,
+            spec=spec, model_flops=ref.model_flops, spans=spans.items,
+            window_s=window_s, tokens=tokens,
             window_peak_bytes=window_peak, trace=trace,
             flash_calls=rec.flash, gmm_calls=rec.gmm_calls())
         values = {m["name"]: _load_reader(m["name"])(record)
@@ -261,6 +285,8 @@ def run_cell(ns, *, device: torch.device, t_start: float,
         info["trace_read_s"] = t_read
     else:
         values = {"setup_s": setup_s, "tokens_per_s": tokens / window_s}
+        if busy and sum(busy) > 0:
+            values["device_tokens_per_s"] = tokens / sum(busy)
     metrics = {m["name"]: {"value": values[m["name"]], "unit": m["unit"]}
                for m in wanted if values.get(m["name"]) is not None}
 
@@ -279,7 +305,7 @@ def run_cell(ns, *, device: torch.device, t_start: float,
     return result
 
 
-def check_outputs(spec, W, mix, jobs, chk, seed, device):
+def check_outputs(ref, spec, W, mix, jobs, chk, seed, device):
     """The served tokens of a sample of the window's streams, drawn from
     the seed, judged by the float32 reference over each prompt and its
     served tokens.  Returns ({number: value}, streams attempted, streams
@@ -292,8 +318,8 @@ def check_outputs(spec, W, mix, jobs, chk, seed, device):
         else:
             failed += int(((out < 0) | (out >= vocab)).any(axis=1).sum())
     seqs, served = sampled(mix, jobs, chk, seed)
-    ref = reference_logits(spec, W, mix, seqs, device)
-    return gap_numbers(ref, served), attempted, failed
+    logits = reference_logits(ref, spec, W, mix, seqs, device)
+    return gap_numbers(logits, served), attempted, failed
 
 
 def sampled(mix, jobs, chk, seed):
@@ -307,11 +333,11 @@ def sampled(mix, jobs, chk, seed):
     return seqs, served
 
 
-def reference_logits(spec, W, mix, seqs, device, fp8: bool = False):
-    """The reference's logits (N, gen_len, vocab) at the positions whose
-    tokens were served; with ``fp8``, the control's."""
+def reference_logits(ref, spec, W, mix, seqs, device, fp8: bool = False):
+    """The reference module ``ref``'s logits (N, gen_len, vocab) at the
+    positions whose tokens were served; with ``fp8``, the control's."""
     P, G = mix["prompt_len"], mix["gen_len"]
-    return decoder.logits(spec, decoder.Weights(W, fp8=fp8),
+    return ref.logits(spec, ref.Weights(W, fp8=fp8),
                           torch.as_tensor(seqs, device=device),
                           [P] + [1] * (G - 1), list(range(P - 1, P + G - 1)))
 

@@ -10,8 +10,8 @@ KERNELS = ("flash_fwd_bf16_kernel", "flash_fwd_f32_kernel")
 
 def read(run):
     bound = sum(work.bound_s(*work.flash_work(B, S, T, Hq, Hkv, D, window,
-                                              causal, size))
-                for B, S, T, Hq, Hkv, D, window, causal, size
+                                              causal, size, Dv))
+                for B, S, T, Hq, Hkv, D, Dv, window, causal, size
                 in run.flash_calls)
     ns = sum(d for name, _, d in run.trace.device_ops
              if any(k in name for k in KERNELS))

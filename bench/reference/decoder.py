@@ -20,6 +20,14 @@ float32 with TF32 off, layer by layer over all rows and attention in
 blocks of queries, so that it fits beside the model's weights.  The
 weights are the benchmark's own tensors, read through ``Weights``, each
 upcast to float32 (or first rounded through float8 for the control).
+
+It is the ``reference`` of the configurations in Mixtral's key names
+(dense GQA with SwiGLU, or top-k experts): besides ``Weights`` and
+``logits`` it gives the harness their widths (``spec``, which is
+``bench.spec.model_spec``), the check of the port's configuration
+(``check_program``) and ``mfu``'s FLOPs (``model_flops``, which is
+``bench.work.model_flops``).  ``Weights``, ``rms_norm``, ``fp8_round``
+and ``exact_f32`` serve other references too.
 """
 
 from __future__ import annotations
@@ -29,6 +37,19 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from bench.spec import model_spec as spec  # noqa: F401  (the contract's)
+from bench.work import model_flops  # noqa: F401  (the contract's)
+
+# the benchmark's widths against the fields of the port's ModelConfig
+PROGRAM_FIELDS = {"n_layers": "n_layers", "d_model": "d_model",
+                  "n_heads": "n_heads", "n_kv_heads": "n_kv_heads",
+                  "head_dim": "head_dim", "vocab_size": "vocab_size",
+                  "window": "sliding_window", "rope_theta": "rope_theta",
+                  "norm_eps": "norm_eps", "dtype": "dtype"}
+MOE_FIELDS = {"n_experts": "n_experts", "top_k": "n_experts_active",
+              "expert_d_ff": "moe_d_ff",
+              "capacity_factor": "moe_capacity_factor"}
 
 QUERY_BLOCK = 1024
 TOKEN_BLOCK = 8192
@@ -82,6 +103,21 @@ class Weights:
 
     def expert(self, key: str, i: int, e: int) -> torch.Tensor:
         return self._cast(key, self.w["layers"][key][i][e])
+
+
+def check_program(spec: dict, cfg) -> dict:
+    """{width: (benchmark, port)} where the port's ``ModelConfig`` differs
+    from ``spec``, field by field, and ``kind`` where its blocks are not
+    plain attention with the SwiGLU MLP or the experts."""
+    moe = bool(spec["n_experts"])
+    fields = dict(PROGRAM_FIELDS, **(MOE_FIELDS if moe else
+                                     {"d_ff": "d_ff"}))
+    bad = {k: (spec[k], getattr(cfg, f)) for k, f in fields.items()
+           if spec[k] != getattr(cfg, f)}
+    kind = ("moe",) if moe else ("attn",)
+    if cfg.block_pattern != kind or cfg.qk_norm or cfg.frontend != "none":
+        bad["kind"] = (kind, cfg.block_pattern, cfg.qk_norm, cfg.frontend)
+    return bad
 
 
 def rms_norm(x, w, eps):

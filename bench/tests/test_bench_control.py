@@ -17,11 +17,12 @@ import pytest
 import torch
 
 from bench import spec as S
-from bench.reference import decoder
 from bench.tests.test_bench_run import CELLS
 
 
 def test_fp8_round_is_float8_e4m3_with_one_scale():
+    # the control's rounding, as the configurations' reference has it
+    decoder = S.reference(S.config_file(S.benchmark(), "internlm2-20b"))
     w = torch.randn(64, 32, generator=torch.Generator().manual_seed(0))
     got = decoder.fp8_round(w)
     scale = w.abs().max() / decoder.FP8_MAX

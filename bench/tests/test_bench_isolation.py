@@ -3,7 +3,8 @@
 names compared whole: ``repro_torch`` is not ``repro``), and nothing
 under ``bench/reference/`` imports the port ``repro_torch`` either; shown
 on the sources and by importing every module with those names
-blocked."""
+blocked.  Outside ``bench/reference/`` no module imports a reference by
+name: a configuration's ``reference`` key names it."""
 
 import ast
 import os
@@ -34,6 +35,28 @@ def test_sources_import_no_jax_nor_repro():
         if "reference" in path.relative_to(BENCH).parts:
             banned.add("repro_torch")
         assert not _imports(path) & banned, path
+
+
+def _imported_modules(path: Path) -> set:
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            base = "." * node.level + (node.module or "")
+            names |= {base} | {f"{base}.{a.name}".replace("..", ".")
+                               for a in node.names}
+    return names
+
+
+def test_only_a_configuration_names_its_reference():
+    for path in sorted(BENCH.rglob("*.py")):
+        if "reference" in path.relative_to(BENCH).parts:
+            continue
+        named = {n for n in _imported_modules(path)
+                 if n.split(".")[-1] == "reference"
+                 or ".reference." in f".{n}."}
+        assert not named, (path, named)
 
 
 _BLOCKED = r"""

@@ -1,5 +1,6 @@
-"""The benchmark's plain float32 decoder against the port, on the CPU at
-the configurations' smoke sizes: both in float32 on the same weights,
+"""Each configuration's reference (the module its ``reference`` key
+names: the plain float32 decoder for both) against the port, on the CPU
+at the configurations' smoke sizes: both in float32 on the same weights,
 the port serving prompts through ``TorchServeEngine`` (prefill, then
 decode through the KV cache), the reference computing each prompt and
 its served tokens at once.  Every logit the engine produced agrees with
@@ -17,7 +18,6 @@ import torch
 from bench import spec as S
 from bench import traffic, weights
 from bench.harness import program_config
-from bench.reference import decoder
 
 TOL = 1e-4
 
@@ -25,17 +25,17 @@ TOL = 1e-4
 def _setup(config_name, prompt_len, gen_len, streams, slots, **change):
     bench = S.benchmark()
     cfg_file = S.sized(S.config_file(bench, config_name), smoke=True)
-    cfg = program_config(cfg_file["program_arch"], S.model_spec(cfg_file),
-                         smoke=True)
+    ref = S.reference(cfg_file)
+    cfg = program_config(ref, cfg_file, ref.spec(cfg_file), smoke=True)
     cfg_file.update(change)
-    spec = S.model_spec(cfg_file)
+    spec = ref.spec(cfg_file)
     cfg = dataclasses.replace(cfg, dtype="float32",
                               moe_capacity_factor=spec["capacity_factor"]
                               or cfg.moe_capacity_factor)
     W = weights.make(cfg, 11, torch.device("cpu"))
     mix = {"slots": slots, "streams": streams, "prompt_len": prompt_len,
            "gen_len": gen_len}
-    return spec, cfg, W, mix
+    return ref, spec, cfg, W, mix
 
 
 def _served(cfg, W, mix):
@@ -78,11 +78,11 @@ def _served(cfg, W, mix):
 ])
 def test_reference_matches_port_in_f32(config_name, prompt_len, gen_len,
                                        change):
-    spec, cfg, W, mix = _setup(config_name, prompt_len, gen_len, 4, 2,
-                               **change)
+    ref, spec, cfg, W, mix = _setup(config_name, prompt_len, gen_len, 4, 2,
+                                    **change)
     prompts, out, got = _served(cfg, W, mix)
     seqs = np.concatenate([prompts, out[:, :-1]], axis=1).astype(np.int64)
-    want = decoder.logits(spec, decoder.Weights(W), torch.as_tensor(seqs),
+    want = ref.logits(spec, ref.Weights(W), torch.as_tensor(seqs),
                           [prompt_len] + [1] * (gen_len - 1),
                           list(range(prompt_len - 1,
                                      prompt_len + gen_len - 1)))
@@ -91,12 +91,12 @@ def test_reference_matches_port_in_f32(config_name, prompt_len, gen_len,
 
 
 def test_capacity_drops_happen_in_the_dropping_case():
-    spec, cfg, W, mix = _setup("mixtral-8x7b-16L", 48, 4, 4, 2,
-                               moe_capacity_factor=0.5)
+    ref, spec, cfg, W, mix = _setup("mixtral-8x7b-16L", 48, 4, 4, 2,
+                                    moe_capacity_factor=0.5)
     x = torch.randn(48, 2, generator=torch.Generator().manual_seed(0))
     experts = torch.topk(x, 2, dim=-1).indices % spec["n_experts"]
-    keep = decoder.admitted(experts, [48], spec)
-    cap = decoder.capacity(48, 2, 0.5, spec["n_experts"])
+    keep = ref.admitted(experts, [48], spec)
+    cap = ref.capacity(48, 2, 0.5, spec["n_experts"])
     assert cap == 16 and not keep.all()
     for e in range(spec["n_experts"]):
         assert int(((experts == e) & keep).sum()) == min(

@@ -15,6 +15,8 @@ from pathlib import Path
 
 import pytest
 
+from bench import spec
+
 ROOT = Path(__file__).resolve().parents[2]
 BENCHMARK = json.loads((ROOT / "BENCHMARK.json").read_text())
 CELLS = [c["name"] for c in BENCHMARK["workloads"]]
@@ -52,7 +54,9 @@ def test_rehearsal_prints_the_contract_line(workload):
                           "device", "checks"]
     assert last["correct"] is True and last["failed"] == 0
     assert last["attempted"] > 0
-    want = {m["name"] for m in BENCHMARK["end_to_end"]}
+    # the CPU has no device trace: a rate read from it is silent
+    want = {m["name"] for m in spec.metrics_for(BENCHMARK, workload, False)
+            if m["source"] != "device_trace"}
     assert set(last["metrics"]) == want
     for m in last["metrics"].values():
         assert m["value"] > 0 and m["unit"]
@@ -68,11 +72,11 @@ def test_traced_rehearsal_reports_the_per_layer_metrics():
     rc, last, err = rehearse(workload, trace=1)
     assert rc == 0, err
     assert list(last)[-2:] == ["breakdown", "checks"]
-    named = [m["name"] for m in BENCHMARK["per_layer"]
-             if workload in m.get("workloads", [workload])]
+    named = {m["name"] for m in spec.metrics_for(BENCHMARK, workload, True)}
     # the CPU has no device trace: the readers of device time are silent
-    assert set(last["metrics"]) == set(named) - {
-        "flash_roofline", "gmm_roofline", "device_idle", "peak_mem_gb"}
+    silent = {"flash_roofline", "gmm_roofline", "device_idle", "peak_mem_gb"}
+    assert set(last["metrics"]) == {n for n in named
+                                    if n.split(".")[0] not in silent}
     assert {"busy_s", "window_s"} <= set(last["device"])
 
 

@@ -17,6 +17,20 @@ def test_flash_work_hand_worked():
     assert work.flash_work(1, 4, 4, 2, 1, 8, window=2)[0] == 4 * 2 * 8 * 7
 
 
+def test_flash_work_with_unequal_head_dims_hand_worked():
+    # B 2, S 3 queries, the last 3 of T = 5 keys, Hq 4, Hkv 2, D 192 for
+    # q and k, Dv 128 for v and the output, causal: 3 + 4 + 5 = 12 pairs
+    flops, nbytes = work.flash_work(2, 3, 5, 4, 2, 192, window=0, Dv=128)
+    # QK^T 2 * 192 and PV 2 * 128 FLOP a pair a head a row
+    assert flops == 2 * 4 * 12 * (2 * 192 + 2 * 128) == 61_440
+    # q 2x3x4x192, out 2x3x4x128, k 2x5x2x192, v 2x5x2x128, bf16; two
+    # int32 position vectors of 3 and 5
+    assert nbytes == (4608 + 3072 + 3840 + 2560) * 2 + 4 * 8 == 28_192
+    # Dv = D is the count of equal head dims
+    assert work.flash_work(2, 3, 5, 4, 2, 192, window=0, Dv=192) == \
+        work.flash_work(2, 3, 5, 4, 2, 192, window=0)
+
+
 @pytest.mark.parametrize("S,window,start", [(1, 0, 0), (7, 0, 0),
                                             (7, 3, 0), (5, 4, 6),
                                             (1, 4096, 4100), (64, 16, 9)])
@@ -64,13 +78,13 @@ def test_recorders_count_rows_that_hold_a_token():
     from bench import spec as S
     from bench import weights
     from bench.harness import Recorders, program_config
-    from bench.reference import decoder
     from repro_torch.models import prefill
 
     cfg_file = S.sized(S.config_file(S.benchmark(), "mixtral-8x7b-16L"),
                        smoke=True)
-    spec = S.model_spec(cfg_file)
-    cfg = program_config(cfg_file["program_arch"], spec, smoke=True)
+    decoder = S.reference(cfg_file)
+    spec = decoder.spec(cfg_file)
+    cfg = program_config(decoder, cfg_file, spec, smoke=True)
     params = weights.to_program(cfg, weights.make(cfg, 3, "cpu"))
     tokens = torch.randint(0, spec["vocab_size"], (2, 24),
                            generator=torch.Generator().manual_seed(1))
@@ -87,6 +101,34 @@ def test_recorders_count_rows_that_hold_a_token():
         assert held == len(set(experts.flatten().tolist()))
         assert {D, F} == {spec["d_model"], spec["expert_d_ff"]}
         assert size == 2
-    assert [c[:6] for c in rec.flash] == [
-        (2, 24, 24, spec["n_heads"], spec["n_kv_heads"],
+    assert [c[:7] for c in rec.flash] == [
+        (2, 24, 24, spec["n_heads"], spec["n_kv_heads"], spec["head_dim"],
          spec["head_dim"])] * spec["n_layers"]
+
+
+def test_recorders_find_a_kernel_bound_in_any_model_module(monkeypatch):
+    """A flash call made through another ``repro_torch.models`` module's
+    binding of the name is recorded, here a latent attention's with v's
+    head dim apart from q's; the binding is restored after."""
+    import sys
+    import types
+
+    from bench.harness import Recorders
+
+    mod = types.ModuleType("repro_torch.models._latent_probe")
+    exec("import torch\n"
+         "def flash_attention_fwd(q, k, v, q_pos, k_pos, *, window=0,\n"
+         "                        causal=True, impl='auto'):\n"
+         "    return q.new_zeros(q.shape[:3] + v.shape[-1:])\n"
+         "def attend(q, k, v, pos):\n"
+         "    return flash_attention_fwd(q, k, v, pos, pos)\n",
+         mod.__dict__)
+    kernel = mod.flash_attention_fwd
+    monkeypatch.setitem(sys.modules, mod.__name__, mod)
+    q, k = torch.zeros(1, 8, 4, 24), torch.zeros(1, 8, 2, 24)
+    v = torch.zeros(1, 8, 2, 16, dtype=torch.float32)
+    with Recorders() as rec:
+        out = mod.attend(q, k, v, torch.arange(8, dtype=torch.int32))
+    assert rec.flash == [(1, 8, 8, 4, 2, 24, 16, 0, True, 4)]
+    assert out.shape == (1, 8, 4, 16)
+    assert mod.flash_attention_fwd is kernel

@@ -60,7 +60,8 @@ class DeviceTrace:
     """One profiled region: every device operation (kernels, copies,
     sets) as (name, start_ns, dur_ns), and the host's operations as
     (start_ns, end_ns, name), both on the profiler's clock, and the
-    region's own span (``label``)."""
+    region's own span (``label``; without it, the span of the device
+    operations)."""
 
     def __init__(self, label: str = "bench.job") -> None:
         self.label = label
@@ -68,12 +69,14 @@ class DeviceTrace:
         self.host_ops = []
         self.start_ns = self.end_ns = 0
 
-    def profile(self, device):
+    def profile(self, device, host: bool = True):
+        """A profiler of the card's operations and, with ``host`` (or
+        without a card), of the host's."""
         from torch.profiler import ProfilerActivity, profile
 
-        acts = [ProfilerActivity.CPU]
-        if device.type == "cuda":
-            acts.append(ProfilerActivity.CUDA)
+        acts = [ProfilerActivity.CUDA] if device.type == "cuda" else []
+        if host or not acts:
+            acts.append(ProfilerActivity.CPU)
         return profile(activities=acts)
 
     def read(self, prof) -> None:
@@ -92,6 +95,9 @@ class DeviceTrace:
                 self.host_ops.append((start, start + dur, name))
         self.device_ops.sort(key=lambda op: op[1])
         self.host_ops.sort()
+        if not self.end_ns and self.device_ops:   # no label: the whole
+            self.start_ns = self.device_ops[0][1]  # profile is the region
+            self.end_ns = max(s + d for _, s, d in self.device_ops)
 
     @property
     def wall_s(self) -> float:

@@ -3,8 +3,11 @@
 One ``torch.Generator`` on the device draws each kind of leaf for all
 layers at once (``layers.<i>.attn.wq`` for every i is one call), in the
 dtype it is served in, and scales it in place: a few large calls, no
-host copy.  The laws: an (in, out) matrix N(0, 1/in); the embedding
-N(0, 0.02^2); a norm's weight 1 + N(0, 0.1^2), so the check sees it.
+host copy.  The laws: an (in, out) matrix N(0, 1/in) (``"matrix"``);
+the embedding N(0, 0.02^2) (``"embed"``); a norm's weight 1 + N(0,
+0.1^2), so the check sees it (``"norm"``).  ``embed`` takes the
+embedding's law, a leaf that holds one vector a layer (a norm's weight)
+the norm's, and every other leaf the matrix's.
 
 The result is the benchmark's own dict of tensors (``make``), which the
 reference reads; ``to_program`` hands the same tensors, as views, to the
@@ -41,9 +44,11 @@ def _layout(cfg) -> tuple:
     return model, groups, counts
 
 
-def _is_norm(key: str) -> bool:
-    return key.split(".")[-1] in ("ln1", "ln2", "final_norm", "q_norm",
-                                  "k_norm")
+def _law(key: str, shape: tuple) -> str:
+    """The law of a leaf of one layer's (or the model's) ``shape``."""
+    if key == "embed":
+        return "embed"
+    return "norm" if len(shape) == 1 else "matrix"
 
 
 @torch.no_grad()
@@ -55,13 +60,14 @@ def make(cfg, seed: int, device) -> dict:
     out = {LAYERS: {}}
     for key in sorted(groups):
         shape, dtype = groups[key]
+        kind = _law(key, shape)
         if key in counts:
             shape = (counts[key],) + shape
         t = torch.empty(shape, dtype=dtype, device=device)
         t.normal_(generator=gen)
-        if _is_norm(key):
+        if kind == "norm":
             t.mul_(0.1).add_(1.0)
-        elif key == "embed":
+        elif kind == "embed":
             t.mul_(0.02)
         else:
             t.mul_(1.0 / math.sqrt(t.shape[-2]))

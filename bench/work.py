@@ -30,15 +30,17 @@ def visible_pairs(S: int, window: int, start: int = 0) -> int:
 
 
 def flash_work(B: int, S: int, T: int, Hq: int, Hkv: int, D: int,
-               window: int, causal: bool = True,
-               itemsize: int = 2) -> tuple[int, int]:
+               window: int, causal: bool = True, itemsize: int = 2,
+               Dv: int | None = None) -> tuple[int, int]:
     """(FLOPs, bytes) of one attention call of S queries over T keys in
-    B rows (causal: the queries are the last S of the T positions): QK^T
-    and PV for every visible pair; q, k, v and both int32 position
-    vectors read, the output written."""
+    B rows (causal: the queries are the last S of the T positions), q and
+    k of head dim D, v and the output of ``Dv`` (D where not given): QK^T
+    at D and PV at Dv for every visible pair; q, k, v and both int32
+    position vectors read, the output written."""
+    Dv = D if Dv is None else Dv
     pairs = visible_pairs(S, window, T - S) if causal else S * T
-    flops = 4 * B * Hq * D * pairs
-    nbytes = (2 * B * S * Hq * D + 2 * B * T * Hkv * D) * itemsize \
+    flops = 2 * B * Hq * (D + Dv) * pairs
+    nbytes = (B * S * Hq * (D + Dv) + B * T * Hkv * (D + Dv)) * itemsize \
         + 4 * (S + T)
     return flops, nbytes
 
@@ -73,7 +75,7 @@ def layer_token_flops(spec: dict) -> int:
 
 
 def model_flops(spec: dict, B: int, S: int, start: int) -> int:
-    """Useful FLOPs of one call over B rows of S new tokens at positions
+    """``decoder``'s ``model_flops``: useful FLOPs of one call over B rows of S new tokens at positions
     start .. start + S - 1 (a prefill: start 0; a decode step: S 1):
     every layer's projections and experts (active ones only), causal
     attention over the visible keys, and the LM head on the last position
