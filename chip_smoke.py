@@ -206,6 +206,12 @@ GMM_SERVED = [
                       ("decode", (3, 8, 8, 4096, 14336)),
                       ("decode32", (32, 8, 8, 4096, 14336))),
      ("torch.bfloat16",)),
+    # the longdoc cell's: 4 slots of 32,768 tokens, 64 experts of 1,408,
+    # top-6 at capacity 1.25 (C 3,840: 15,360 rows an expert), and its
+    # decode (C 8: 32 rows)
+    ("deepseek-v2-lite", (("prefill", (4, 64, 3840, 2048, 1408)),
+                          ("decode", (4, 64, 8, 2048, 1408))),
+     ("torch.bfloat16",)),
 ]
 # (B, C) whose B * C rows sit on each side of the narrow kernel's limit of
 # 256 (256 and 264, twice), and its N at 8, 24 and 64 (run at 64), 72 and
@@ -268,7 +274,11 @@ GRAD_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2}
 # qwen3-8b's with a window that does not bite at PROMPT_LEN
 FLASH_TIMED = {"qwen3-0.6b": 128, "granite-moe-1b-a400m": 64,
                "zamba2-2.7b": 80, "qwen3-8b": 128, "deepseek-7b": 128,
-               "internlm2-20b": 128}
+               "internlm2-20b": 128, "deepseek-v2-lite": 192}
+# deepseek-v2-lite's latent attention expanded for prefill: 16 heads, q
+# and k at 192 (128 without rope + 64 rope), v a view of the expanded
+# latent at 128; held and timed at one row of S = T = FLASH_MLA_S
+FLASH_MLA_HEADS, FLASH_MLA_S = 16, 4096
 # and the two non-causal whisper shapes, at its prefill's B
 FLASH_TIMED_WHISPER = ("whisper-base encoder", "whisper-base cross")
 # device-time runs of the kernel and of SDPA at each timed shape
@@ -621,6 +631,19 @@ def flash_kernel_phase(torch, fa, gen):
             arange(S), arange(S), window, True))
         if arch in FLASH_TIMED:
             inputs[arch] = (q, k, v, arange(S), arange(S))
+    # deepseek-v2-lite's prefill layout (qk 192, v 128), v sliced out of
+    # the expanded latent as the model hands it over
+    (D, Dv), H, S = fa.SPLIT_HEAD_DIMS[0], FLASH_MLA_HEADS, FLASH_MLA_S
+    for dtype in (torch.float32, torch.bfloat16):
+        short = str(dtype).replace("torch.", "")
+        q, k = rnd((1, S, H, D), dtype), rnd((1, S, H, D), dtype)
+        v = rnd((1, S, H, D - 64 + Dv), dtype)[..., D - 64:]
+        err = positional(f"deepseek-v2-lite prefill B1 S=T={S} H{H} D{D} "
+                         f"Dv{Dv} {short}", dtype, q, k, v, arange(S),
+                         arange(S), 0, True)
+        if dtype == torch.bfloat16:
+            errs.append(err)
+            inputs["deepseek-v2-lite"] = (q, k, v, arange(S), arange(S))
     # the sim phase's paths: train_100m's forward and the calibration's
     # prefills, at qwen3-0.6b's heads
     Hq, Hkv, D = 16, 8, 128
@@ -765,13 +788,14 @@ def flash_timing_phase(torch, fa, arch, inputs, causal=True):
     check(fa.visible_pairs(S, T, 0, causal) == int(visible.sum().item()),
           f"flash work at {arch}: the positions are not bottom-right")
     flops, nbytes = fa.work(B, S, T, Hq, k.shape[2], D, causal=causal,
-                            itemsize=q.element_size())
+                            itemsize=q.element_size(), Dv=v.shape[3])
     t_ops = flops / PEAK_FLOPS[str(q.dtype)] * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     bound_ms = max(t_ops, t_bytes)
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
     print(f"flash timing at {arch}'s prefill shape B{B} S{S} T{T} Hq{Hq} "
-          f"Hkv{k.shape[2]} D{D} {q.dtype} causal={causal} (device time, "
+          f"Hkv{k.shape[2]} D{D} Dv{v.shape[3]} {q.dtype} causal={causal} "
+          "(device time, "
           "mean of 20 calls):")
     print(f"  flash kernel {ms:.4f} ms (events, launch included: "
           f"{event_ms:.4f} ms) | plain {plain_ms:.4f} ms | sdpa (yardstick) "

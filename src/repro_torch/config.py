@@ -9,6 +9,12 @@ reads the same in both packages; so are the derived values
 ``param_count``, ``active_param_count``) and the cell rules.  The
 reference's ``RuntimeConfig`` has no counterpart (the port reads no field
 of it), and its TPU ``HardwareSpec`` is replaced by ``H100``.
+
+``ModelConfig`` also has fields of the port's own, after the copied
+ones, whose defaults leave every copied configuration as it is: the
+latent attention (MLA) of DeepSeek-V2, its leading dense layers, shared
+experts, gates that are not renormalised, and YaRN rope scaling
+(``configs.deepseek_v2_lite``).
 """
 
 from __future__ import annotations
@@ -69,6 +75,26 @@ class ModelConfig:
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
 
+    # ---- the port's own (DeepSeek-V2); the defaults change nothing -------
+    # latent attention: q (d -> H x (nope + rope)), the latent c_kv and one
+    # shared rope key (d -> kv_lora_rank + rope), c_kv normed, then
+    # (kv_lora_rank -> H x (nope + v)); 0 = the copied attention
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    n_dense_layers: int = 0        # leading attention + dense-MLP layers
+    moe_shared_experts: int = 0    # of moe_d_ff each, as one SwiGLU
+    moe_renormalize: bool = True   # top-k gates renormalised to sum 1
+    # YaRN (0 = none): factor, original context, beta_fast / beta_slow,
+    # mscale / mscale_all_dim (HF's DeepseekV2YarnRotaryEmbedding)
+    yarn_factor: float = 0.0
+    yarn_original_max_len: int = 0
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
+
     # ---- derived ---------------------------------------------------------
     @property
     def head_dim(self) -> int:
@@ -98,9 +124,28 @@ class ModelConfig:
             return True   # hybrid: attention cache exists but SSM dominates
         return False
 
+    @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank > 0
+
     def layer_kinds(self) -> Tuple[str, ...]:
-        pat = self.block_pattern
-        return tuple(pat[i % len(pat)] for i in range(self.n_layers))
+        """The pattern cycled over the layers after the leading dense
+        (``attn``) ones."""
+        pat, n0 = self.block_pattern, self.n_dense_layers
+        return ("attn",) * n0 + tuple(pat[i % len(pat)]
+                                      for i in range(self.n_layers - n0))
+
+    def attn_param_count(self) -> int:
+        """One attention block's projections (and QK or latent norms)."""
+        d, h, hd = self.d_model, self.n_heads, self.head_dim
+        if self.is_mla:
+            r, rope = self.kv_lora_rank, self.qk_rope_head_dim
+            return (d * h * (self.qk_nope_head_dim + rope)   # q
+                    + d * (r + rope) + r                     # kv_a, its norm
+                    + r * h * (self.qk_nope_head_dim + self.v_head_dim)
+                    + h * self.v_head_dim * d)               # kv_b, o
+        attn = d * (h * hd) + 2 * d * (self.n_kv_heads * hd) + (h * hd) * d
+        return attn + (2 * hd if self.qk_norm else 0)
 
     @property
     def d_inner(self) -> int:
@@ -121,19 +166,15 @@ class ModelConfig:
         total = v * d                      # embedding
         total += v * d                     # lm head (untied)
         total += d                         # final norm
-        hd = self.head_dim
         for kind in self.layer_kinds():
             if kind in ("attn", "moe"):
-                attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) \
-                    + (self.n_heads * hd) * d
-                if self.qk_norm:
-                    attn += 2 * hd
-                total += attn + 2 * d      # block norms
+                total += self.attn_param_count() + 2 * d   # block norms
                 if kind == "attn":
                     total += 3 * d * self.d_ff
                 else:
                     total += self.n_experts * 3 * d * self.moe_d_ff \
                         + d * self.n_experts           # router
+                    total += 3 * d * self.moe_shared_experts * self.moe_d_ff
             elif kind == "mamba2":
                 di, ns, nh = self.d_inner, self.ssm_state, self.ssm_heads
                 total += d * (2 * di + 2 * ns + nh)    # in_proj (z,x,B,C,dt)

@@ -3,7 +3,10 @@ whisper-base's encoder-decoder and internvl2-2b's vision frontend.
 
 ``get_config(name)`` / ``get_smoke_config(name)`` / ``ARCHS`` keep the
 reference's names.  An arch of ``ARCHS`` missing from ``PORTED`` would
-raise ``NotImplementedError``; none is.
+raise ``NotImplementedError``; none is.  ``PORT_ONLY`` holds the
+architectures the port runs and the reference does not (deepseek-v2-lite,
+whose latent attention the reference lacks); ``get_config`` and
+``get_smoke_config`` take them too.
 """
 
 from importlib import import_module
@@ -37,10 +40,17 @@ PORTED: Dict[str, str] = {
     "internvl2-2b": "internvl2_2b",
 }
 
+PORT_ONLY: Dict[str, str] = {
+    "deepseek-v2-lite": "deepseek_v2_lite",
+}
+
 
 def _mod(name: str):
+    if name in PORT_ONLY:
+        return import_module(f"repro_torch.configs.{PORT_ONLY[name]}")
     if name not in ARCHS:
-        raise KeyError(f"unknown arch {name!r}; available: {ARCHS}")
+        raise KeyError(f"unknown arch {name!r}; available: "
+                       f"{ARCHS + list(PORT_ONLY)}")
     if name not in PORTED:
         raise NotImplementedError(
             f"arch {name!r} is not ported to repro_torch yet; "

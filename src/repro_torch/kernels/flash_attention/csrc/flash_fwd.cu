@@ -22,10 +22,12 @@
 // null lse pointer writes nothing.  It is stored once a row, by a thread
 // that already holds the row's m and l.
 //
-// Layout: q (B,S,Hq,D), k/v (B,T,Hkv,D) with any strides on B, S and H and
-// D contiguous; out (B,S,Hq,D) contiguous, in q's dtype (f32 or bf16).
-// D is one of 16, 32, 64, 80, 128 (the reduced and the published head dims;
-// 80 is zamba2-2.7b's shared attention, 2560 / 32).
+// Layout: q (B,S,Hq,D), k (B,T,Hkv,D), v (B,T,Hkv,DV) with any strides on
+// B, S and H and the head dim contiguous; out (B,S,Hq,DV) contiguous, in
+// q's dtype (f32 or bf16).  D = DV is one of 16, 32, 64, 80, 128 (the
+// reduced and the published head dims; 80 is zamba2-2.7b's shared
+// attention, 2560 / 32); or D 192 with DV 128, DeepSeek-V2's latent
+// attention expanded for prefill (qk: 128 without rope + 64 rope; v 128).
 // GQA without repeating KV: query head h reads kv head h / (Hq / Hkv),
 // the mapping jnp.repeat(k, G, axis=2) gives in the reference.
 //
@@ -38,6 +40,9 @@
 //   the bytes (0.019 ms at 3.35 TB/s), the operations close behind.
 // * D 64 (granite-moe-1b-a400m, Hq 16, Hkv 8): 6.4 GFLOP against 18.9
 //   MB: the operations, by a little.
+// * D 192 / DV 128 (deepseek-v2-lite, 16 heads, no GQA, S = T = 32,768):
+//   2 x (192 + 128) FLOP a visible pair against each K and V row read once
+//   a (batch, head): the operations, by far.
 // So the design is the tensor cores' at every served shape: keep them
 // fed and keep the loads off the threads that issue the products.
 //
@@ -73,7 +78,11 @@
 //     (160-byte rows fit no atom) one 128-byte region of 64 and one
 //     32-byte region of 16, so Q K^T takes five k-steps over both and
 //     P V one wgmma of N 64 and one of N 16 (padding D to 128 would cost
-//     1.6x the work).
+//     1.6x the work); D 192 three 128-byte regions for Q and K and DV 128
+//     two for V and O.  At D 192 one Q tile is 48 KB and a K stage 48 KB,
+//     a V stage 32 KB: two K/V stages and one Q buffer (208 KB) fit, two
+//     Q buffers (256 KB) do not, so there the next item's Q waits for the
+//     last item's O store (it is still prefetched into L2 an item ahead).
 //   - The mask is applied element by element, from the positions, only on
 //     tiles the producer did not find visible to every query of the item.
 //     The producer hands each item's query positions over beside its Q.
@@ -154,9 +163,10 @@ constexpr int SCAN = 8;  // tiles whose positions a warp loads together
 static_assert(SCAN * WG_BK == 32 * 32, "the scan reads 32 positions a lane");
 
 struct TmaParams {
-  // [0]: head dims 0 .. W0-1; [1]: W0 .. D-1 (D 80 and 128 only); o's
-  // boxes are 64 rows, one consumer group's
-  CUtensorMap q[2], k[2], v[2], o[2];
+  // one map a head-dim region ([0]: head dims 0 .. W0-1, [1]: the next W1,
+  // [2]: the next W2); v and o in DV's regions; o's boxes are 64 rows,
+  // one consumer group's
+  CUtensorMap q[3], k[3], v[2], o[2];
   float* lse;  // (B,Hq,S) or null
   const int* q_pos;
   const int* k_pos;
@@ -165,32 +175,49 @@ struct TmaParams {
   float scale_log2;  // log2(e) / sqrt(D): exp(x - m) = exp2(x' - m')
 };
 
-// A block's shared memory, in bytes from a 1024-aligned base.  A tile of
-// R rows holds its head dims in one or two regions as TMA wrote them: R
-// rows of W0 values (W0 x 2 bytes, the region's swizzle width), then R
-// rows of the other W1.  Every region starts 1024-aligned.
+// A tile's head dims in regions that each fit one swizzle atom, as TMA
+// writes them: R rows of W0 values (W0 x 2 bytes, the region's swizzle
+// width), then R rows of W1, then R rows of W2.
 template <int D>
-struct WgSmem {
+struct Regions {
   static constexpr int W0 = D < 64 ? D : 64;
-  static constexpr int W1 = D - W0;
+  static constexpr int W1 = D <= 64 ? 0 : (D - 64 < 64 ? D - 64 : 64);
+  static constexpr int W2 = D - W0 - W1;
   static_assert(W0 == 16 || W0 == 32 || W0 == 64, "head dim");
   static_assert(W1 == 0 || W1 == 16 || W1 == 64, "head dim");
+  static_assert(W2 == 0 || W2 == 64, "head dim");
+  static constexpr int N = 1 + (W1 > 0) + (W2 > 0);  // regions
+};
+
+// A block's shared memory, in bytes from a 1024-aligned base: Q and K
+// tiles in D's regions, V in DV's (two at most).  Every region starts
+// 1024-aligned.
+template <int D, int DV>
+struct WgSmem {
+  static constexpr int W0 = Regions<D>::W0, W1 = Regions<D>::W1,
+                       W2 = Regions<D>::W2;
+  static_assert(Regions<DV>::W2 == 0 && DV <= D, "v head dim");
   // K and V tiles in flight, each: three where shared memory holds them
   static constexpr int STAGES = D > 80 ? 2 : 3;
+  // Q buffers: two, so that the next item's Q lands while this one runs,
+  // where shared memory holds them
+  static constexpr int QBUF = D > 128 ? 1 : 2;
+  static constexpr int QSHIFT = QBUF == 2;  // item n's round: n >> QSHIFT
   static constexpr int Q_BYTES = WG_BQ * D * 2;
-  static constexpr int KV_BYTES = WG_BK * D * 2;
-  static constexpr int Q = 0;             // + buffer x Q_BYTES
-  static constexpr int K = Q + 2 * Q_BYTES;  // + stage x KV_BYTES
-  static constexpr int V = K + STAGES * KV_BYTES;
-  static constexpr int KPOS = V + STAGES * KV_BYTES;      // int [stage][BK]
+  static constexpr int K_BYTES = WG_BK * D * 2;
+  static constexpr int V_BYTES = WG_BK * DV * 2;
+  static constexpr int Q = 0;                   // + buffer x Q_BYTES
+  static constexpr int K = Q + QBUF * Q_BYTES;  // + stage x K_BYTES
+  static constexpr int V = K + STAGES * K_BYTES;
+  static constexpr int KPOS = V + STAGES * V_BYTES;       // int [stage][BK]
   static constexpr int TILE = KPOS + STAGES * WG_BK * 4;  // int [stage]
   static constexpr int FULL = TILE + STAGES * 4;          // int [stage]
   // int [buffer][BQ]: the query positions beside Q
   static constexpr int QPOS = (FULL + STAGES * 4 + 15) / 16 * 16;
-  static constexpr int BARS = QPOS + 2 * WG_BQ * 4;
+  static constexpr int BARS = QPOS + QBUF * WG_BQ * 4;
   // q_full, q_empty [buffer], then k_full, v_full, k_empty, v_empty
   // [stage]; and slack to align the base
-  static constexpr int BYTES = BARS + (4 + 4 * STAGES) * 8 + 1024;
+  static constexpr int BYTES = BARS + (2 * QBUF + 4 * STAGES) * 8 + 1024;
   static_assert(BYTES <= 232448, "shared memory of one block");
 };
 
@@ -261,11 +288,11 @@ struct PFrags {
   }
 };
 
-// One consumer thread's share of O (64 rows x D): the accumulators of the
-// N = W0 and N = W1 products, in the wgmma layout (hopper.cuh).
-template <int D>
+// One consumer thread's share of O (64 rows x DV): the accumulators of
+// the N = W0 and N = W1 products, in the wgmma layout (hopper.cuh).
+template <int DV>
 struct Acc {
-  static constexpr int W0 = WgSmem<D>::W0, W1 = WgSmem<D>::W1;
+  static constexpr int W0 = Regions<DV>::W0, W1 = Regions<DV>::W1;
   static constexpr int N1 = W1 > 0 ? W1 / 2 : 1;
   float o0[W0 / 2];
   float o1[N1];
@@ -318,13 +345,15 @@ struct Acc {
 };
 
 // S = Q K^T for the group's 64 rows and a tile's 128 keys: k-steps of 16
-// over both head-dim regions of Q (qa0, qa1) and K (ks).
+// over every head-dim region of Q (qa0, qa1, qa2) and K (ks).
 template <int D>
 __device__ __forceinline__ void issue_qk(float (&s)[WG_BK / 2],
                                          const unsigned char* qa0,
                                          const unsigned char* qa1,
+                                         const unsigned char* qa2,
                                          const unsigned char* ks) {
-  constexpr int W0 = WgSmem<D>::W0, W1 = WgSmem<D>::W1;
+  constexpr int W0 = Regions<D>::W0, W1 = Regions<D>::W1,
+                W2 = Regions<D>::W2;
 #pragma unroll
   for (int j = 0; j < W0 / 16; ++j)
     hopper::wgmma_m64n128k16_ss(s, hopper::smem_desc(qa0 + j * 32, W0 * 2),
@@ -336,14 +365,22 @@ __device__ __forceinline__ void issue_qk(float (&s)[WG_BK / 2],
           s, hopper::smem_desc(qa1 + j * 32, W1 * 2),
           hopper::smem_desc(ks + WG_BK * W0 * 2 + j * 32, W1 * 2), 1);
   }
+  if constexpr (W2 > 0) {
+#pragma unroll
+    for (int j = 0; j < W2 / 16; ++j)
+      hopper::wgmma_m64n128k16_ss(
+          s, hopper::smem_desc(qa2 + j * 32, W2 * 2),
+          hopper::smem_desc(ks + WG_BK * (W0 + W1) * 2 + j * 32, W2 * 2),
+          1);
+  }
 }
 
 // O += P V: V (vs) read transposed; for each 16 keys and region, one
 // wgmma with P's hi part and one with its lo part.
-template <int D>
-__device__ __forceinline__ void issue_pv(Acc<D>& acc, const PFrags& pf,
+template <int DV>
+__device__ __forceinline__ void issue_pv(Acc<DV>& acc, const PFrags& pf,
                                          const unsigned char* vs) {
-  constexpr int W0 = WgSmem<D>::W0, W1 = WgSmem<D>::W1;
+  constexpr int W0 = Regions<DV>::W0, W1 = Regions<DV>::W1;
 #pragma unroll
   for (int kk = 0; kk < WG_BK / 16; ++kk) {
     const uint64_t d0 = hopper::smem_desc(vs + kk * 16 * W0 * 2, W0 * 2);
@@ -486,11 +523,13 @@ struct WorkItems {
   }
 };
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(WG_THREADS, 1)
     flash_fwd_bf16_kernel(const __grid_constant__ TmaParams p) {
-  using L = WgSmem<D>;
-  constexpr int W0 = L::W0, W1 = L::W1;
+  using L = WgSmem<D, DV>;
+  constexpr int W0 = L::W0, W1 = L::W1, W2 = L::W2;
+  constexpr int V0 = Regions<DV>::W0, V1 = Regions<DV>::W1;
+  constexpr int NQ = Regions<D>::N, NV = Regions<DV>::N;
 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
@@ -500,8 +539,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   volatile int* tile_s = reinterpret_cast<volatile int*>(smem + L::TILE);
   volatile int* full_s = reinterpret_cast<volatile int*>(smem + L::FULL);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BARS);
-  uint64_t* q_empty = q_full + 2;
-  uint64_t* k_full = q_empty + 2;
+  uint64_t* q_empty = q_full + L::QBUF;
+  uint64_t* k_full = q_empty + L::QBUF;
   uint64_t* v_full = k_full + L::STAGES;
   uint64_t* k_empty = v_full + L::STAGES;
   uint64_t* v_empty = k_empty + L::STAGES;
@@ -511,7 +550,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < L::QBUF; ++i) {
       hopper::mbar_init(&q_full[i], 32);  // every lane of the producer
       hopper::mbar_init(&q_empty[i], WG_CONSUMERS);
     }
@@ -529,12 +568,13 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     // ---- producer: warp 0 issues every load, warps 1-3 leave ------------
     hopper::regs_dealloc<PRODUCER_REGS>();
     if (warp != 0) return;
-    if (lane < (W1 > 0 ? 6 : 3)) {  // the maps that were encoded
-      const CUtensorMap* maps = lane % 3 == 0   ? p.q
-                                : lane % 3 == 1 ? p.k
-                                                : p.v;
-      hopper::prefetch_tensormap(&maps[lane / 3]);
-    }
+    // the maps that were encoded: NQ of q, NQ of k, NV of v
+    if (lane < NQ)
+      hopper::prefetch_tensormap(&p.q[lane]);
+    else if (lane < 2 * NQ)
+      hopper::prefetch_tensormap(&p.k[lane - NQ]);
+    else if (lane < 2 * NQ + NV)
+      hopper::prefetch_tensormap(&p.v[lane - 2 * NQ]);
 
     // K rounds carry the tiles and each item's end; V rounds the tiles
     Ring<L::STAGES> kr, vr;
@@ -575,18 +615,21 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       uint32_t live_lanes, partial_lanes;
       scan_chunk(kp, seen_by_some, seen_by_all, live_lanes, partial_lanes);
 
-      // Q and its positions into the buffer the item before last used,
-      // once the consumers are done with it (the last item's may still be
-      // in use); lane 0 loads Q, every lane stores four positions
-      const int qb = n_done & 1;
+      // Q and its positions into the buffer the item before last used
+      // (with one buffer, the last item's), once the consumers are done
+      // with it; lane 0 loads Q, every lane stores four positions
+      const int qb = n_done & (L::QBUF - 1);
       if (lane == 0) {
-        hopper::mbar_wait(&q_empty[qb], ((n_done >> 1) & 1) ^ 1);
+        hopper::mbar_wait(&q_empty[qb], ((n_done >> L::QSHIFT) & 1) ^ 1);
         unsigned char* qs = smem + L::Q + qb * L::Q_BYTES;
         hopper::mbar_expect_tx(&q_full[qb], L::Q_BYTES);
         hopper::tma_load_4d(qs, &p.q[0], &q_full[qb], 0, q0, h, b);
         if constexpr (W1 > 0)
           hopper::tma_load_4d(qs + WG_BQ * W0 * 2, &p.q[1], &q_full[qb], W0,
                               q0, h, b);
+        if constexpr (W2 > 0)
+          hopper::tma_load_4d(qs + WG_BQ * (W0 + W1) * 2, &p.q[2],
+                              &q_full[qb], W0 + W1, q0, h, b);
         // The next item's Q into L2 now: at the change of items every
         // block loads a Q, and from L2 that burst is short.
         int wn = -1;
@@ -596,6 +639,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
           hopper::tma_prefetch_4d(&p.q[0], 0, nx.q0, nx.h, nx.b);
           if constexpr (W1 > 0)
             hopper::tma_prefetch_4d(&p.q[1], W0, nx.q0, nx.h, nx.b);
+          if constexpr (W2 > 0)
+            hopper::tma_prefetch_4d(&p.q[2], W0 + W1, nx.q0, nx.h, nx.b);
         }
       }
       __syncwarp();  // lane 0 has seen Q's buffer free
@@ -618,26 +663,29 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
             for (int v = 0; v < 8; ++v) dst[v] = kp[v];
           }
           if (lane == 0) {
-            unsigned char* kbuf = smem + L::K + ks * L::KV_BYTES;
+            unsigned char* kbuf = smem + L::K + ks * L::K_BYTES;
             tile_s[ks] = t0;
             full_s[ks] = !((partial_lanes >> (4 * u)) & 0xFu);
-            hopper::mbar_arrive_expect_tx(&k_full[ks], L::KV_BYTES);
+            hopper::mbar_arrive_expect_tx(&k_full[ks], L::K_BYTES);
             hopper::tma_load_4d(kbuf, &p.k[0], &k_full[ks], 0, t0, hk, b);
             if constexpr (W1 > 0)
               hopper::tma_load_4d(kbuf + WG_BK * W0 * 2, &p.k[1],
                                   &k_full[ks], W0, t0, hk, b);
+            if constexpr (W2 > 0)
+              hopper::tma_load_4d(kbuf + WG_BK * (W0 + W1) * 2, &p.k[2],
+                                  &k_full[ks], W0 + W1, t0, hk, b);
           } else {
             hopper::mbar_arrive(&k_full[ks]);  // releases its kpos_s
           }
           kr.next();
           hopper::mbar_wait(&v_empty[vs], vr.phase ^ 1);
           if (lane == 0) {
-            unsigned char* vbuf = smem + L::V + vs * L::KV_BYTES;
-            hopper::mbar_arrive_expect_tx(&v_full[vs], L::KV_BYTES);
+            unsigned char* vbuf = smem + L::V + vs * L::V_BYTES;
+            hopper::mbar_arrive_expect_tx(&v_full[vs], L::V_BYTES);
             hopper::tma_load_4d(vbuf, &p.v[0], &v_full[vs], 0, t0, hk, b);
-            if constexpr (W1 > 0)
-              hopper::tma_load_4d(vbuf + WG_BK * W0 * 2, &p.v[1],
-                                  &v_full[vs], W0, t0, hk, b);
+            if constexpr (V1 > 0)
+              hopper::tma_load_4d(vbuf + WG_BK * V0 * 2, &p.v[1],
+                                  &v_full[vs], V0, t0, hk, b);
           }
           vr.next();
         }
@@ -674,13 +722,13 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       if (w == -2) break;
       if (w < 0) continue;
       const auto [b, h, q0] = items.decode(w);
-      Acc<D> acc;
+      Acc<DV> acc;
       acc.zero();
       float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
       float s[WG_BK / 2];
       PFrags pf;
-      const int qb = n_done & 1;
-      hopper::mbar_wait(&q_full[qb], (n_done >> 1) & 1);
+      const int qb = n_done & (L::QBUF - 1);
+      hopper::mbar_wait(&q_full[qb], (n_done >> L::QSHIFT) & 1);
       ++n_done;
       // the positions of this thread's two rows (rows past S are not
       // stored)
@@ -690,6 +738,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       // this group's 64 query rows in each head-dim region
       const unsigned char* qa0 = smem + L::Q + qb * L::Q_BYTES;
       const unsigned char* qa1 = qa0 + WG_BQ * W0 * 2 + cg * 64 * W1 * 2;
+      const unsigned char* qa2 =
+          qa0 + WG_BQ * (W0 + W1) * 2 + cg * 64 * W2 * 2;
       qa0 += cg * 64 * W0 * 2;
 
       // Tile j's products are issued together with tile j-1's P V: S_j =
@@ -703,7 +753,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
         any = true;
         named_sync(1 + cg);
         hopper::wgmma_fence();
-        issue_qk<D>(s, qa0, qa1, smem + L::K + kr.stage * L::KV_BYTES);
+        issue_qk<D>(s, qa0, qa1, qa2, smem + L::K + kr.stage * L::K_BYTES);
         hopper::wgmma_commit();
         named_arrive(2 - cg);
         hopper::wgmma_wait<0>();
@@ -721,10 +771,11 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
           if (tile_s[kr.stage] < 0) break;
           named_sync(1 + cg);
           hopper::wgmma_fence();
-          issue_qk<D>(s, qa0, qa1, smem + L::K + kr.stage * L::KV_BYTES);
+          issue_qk<D>(s, qa0, qa1, qa2,
+                      smem + L::K + kr.stage * L::K_BYTES);
           hopper::wgmma_commit();
           hopper::mbar_wait(&v_full[pv.stage], pv.phase);
-          issue_pv<D>(acc, pf, smem + L::V + pv.stage * L::KV_BYTES);
+          issue_pv<DV>(acc, pf, smem + L::V + pv.stage * L::V_BYTES);
           hopper::wgmma_commit();
           named_arrive(2 - cg);
 
@@ -750,7 +801,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       if (any) {
         hopper::mbar_wait(&v_full[pv.stage], pv.phase);
         hopper::wgmma_fence();
-        issue_pv<D>(acc, pf, smem + L::V + pv.stage * L::KV_BYTES);
+        issue_pv<DV>(acc, pf, smem + L::V + pv.stage * L::V_BYTES);
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
         acc.fence();
@@ -758,8 +809,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
         hopper::mbar_arrive(&v_empty[pv.stage]);
       }
 
-      // O through Q's buffer (this group's own 64 rows of it) and TMA,
-      // which leaves out rows past S
+      // O through Q's buffer (this group's own 64 rows of it: O's regions
+      // are Q's first ones) and TMA, which leaves out rows past S
       const int row[2] = {row0, row0 + 8};
       const float inv[2] = {1.f / fmaxf(l[0], 1e-30f),
                             1.f / fmaxf(l[1], 1e-30f)};
@@ -778,11 +829,11 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       hopper::fence_proxy_async();
       named_sync(3 + cg, 128);
       if (threadIdx.x % 128 == 0) {
-        hopper::tma_store_4d(&p.o[0], qs + cg * 64 * W0 * 2, 0, q0 + cg * 64,
+        hopper::tma_store_4d(&p.o[0], qs + cg * 64 * V0 * 2, 0, q0 + cg * 64,
                              h, b);
-        if constexpr (W1 > 0)
+        if constexpr (V1 > 0)
           hopper::tma_store_4d(&p.o[1],
-                               qs + WG_BQ * W0 * 2 + cg * 64 * W1 * 2, W0,
+                               qs + WG_BQ * V0 * 2 + cg * 64 * V1 * 2, V0,
                                q0 + cg * 64, h, b);
         hopper::bulk_commit();
         hopper::bulk_wait_read();  // before the buffer goes back
@@ -819,21 +870,21 @@ constexpr int NT = 256;  // 16 row groups x 16 column groups
 
 // Shared-memory row strides (in floats), padded so that the access
 // patterns below are free of bank conflicts.
-template <int D>
+template <int D, int DV>
 struct Smem {
   static constexpr int QST = D + 4;   // Qs[BQ][QST]
   static constexpr int KST = BK + 1;  // Kt[D][KST]  (K transposed)
-  static constexpr int VST = D;       // Vs[BK][VST]
+  static constexpr int VST = DV;      // Vs[BK][VST]
   static constexpr int PST = BK + 4;  // Ps[BQ][PST] (scores, then probs)
   static constexpr int FLOATS =
       BQ * QST + D * KST + BK * VST + BQ * PST + 3 * BQ;
   static constexpr int BYTES = FLOATS * 4 + (BQ + BK) * 4;
 };
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(NT) flash_fwd_f32_kernel(const Params p) {
-  using L = Smem<D>;
-  constexpr int DJ = D / 16;  // output columns per thread
+  using L = Smem<D, DV>;
+  constexpr int DJ = DV / 16;  // output columns per thread
   extern __shared__ float smem[];
   float* Qs = smem;
   float* Kt = Qs + BQ * L::QST;
@@ -893,13 +944,12 @@ __global__ void __launch_bounds__(NT) flash_fwd_f32_kernel(const Params p) {
     for (int e = tid; e < BK * D; e += NT) {
       const int c = e / D, d = e % D;
       const int t = t0 + c;
-      float kv = 0.f, vv = 0.f;
-      if (t < p.T) {
-        kv = kg[t * p.sks + d];
-        vv = vg[t * p.svs + d];
-      }
-      Kt[d * L::KST + c] = kv;
-      Vs[c * L::VST + d] = vv;
+      Kt[d * L::KST + c] = t < p.T ? kg[t * p.sks + d] : 0.f;
+    }
+    for (int e = tid; e < BK * DV; e += NT) {
+      const int c = e / DV, d = e % DV;
+      const int t = t0 + c;
+      Vs[c * L::VST + d] = t < p.T ? vg[t * p.svs + d] : 0.f;
     }
     __syncthreads();
 
@@ -995,50 +1045,57 @@ __global__ void __launch_bounds__(NT) flash_fwd_f32_kernel(const Params p) {
     if (p.lse != nullptr && cg == 0)  // m and l in natural units
       p.lse[(static_cast<long long>(b) * p.Hq + h) * p.S + q0 + r] =
           fmaxf(m_s[r], -1e29f) + logf(denom);
-    float* orow = og + ((static_cast<long long>(b) * p.S + q0 + r) * p.Hq + h) * D;
+    float* orow =
+        og + ((static_cast<long long>(b) * p.S + q0 + r) * p.Hq + h) * DV;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) orow[cg + 16 * j] = acc[i][j] / denom;
   }
 }
 
-template <int D>
+template <int D, int DV = D>
 cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
-  constexpr int bytes = Smem<D>::BYTES;
+  constexpr int bytes = Smem<D, DV>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      flash_fwd_f32_kernel<D, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(p.B * p.Hq, (p.S + BQ - 1) / BQ);
-  flash_fwd_f32_kernel<D><<<grid, NT, bytes, stream>>>(p);
+  flash_fwd_f32_kernel<D, DV><<<grid, NT, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
 // Returned when the driver refuses a tensor map (or lacks the encoder).
 constexpr int ERR_TENSOR_MAP = -1;
 
-template <int D>
+template <int D, int DV = D>
 int launch_bf16(const Params& a, cudaStream_t stream) {
-  using L = WgSmem<D>;
+  using L = WgSmem<D, DV>;
+  using RV = Regions<DV>;
   TmaParams p{};
-  // tensor-map dims are innermost first: (D, rows, heads, batch)
+  // tensor-map dims are innermost first: (head dim, rows, heads, batch)
   const long long qdims[4] = {D, a.S, a.Hq, a.B};
   const long long kdims[4] = {D, a.T, a.Hkv, a.B};
+  const long long vdims[4] = {DV, a.T, a.Hkv, a.B};
+  const long long odims[4] = {DV, a.S, a.Hq, a.B};
   const long long qstr[3] = {a.sqs, a.sqh, a.sqb};
   const long long kstr[3] = {a.sks, a.skh, a.skb};
   const long long vstr[3] = {a.svs, a.svh, a.svb};
-  bool ok = hopper::encode_bf16_4d(&p.q[0], a.q, qdims, qstr, L::W0, WG_BQ) &&
-            hopper::encode_bf16_4d(&p.k[0], a.k, kdims, kstr, L::W0, WG_BK) &&
-            hopper::encode_bf16_4d(&p.v[0], a.v, kdims, vstr, L::W0, WG_BK);
-  // out is contiguous (B, S, Hq, D)
-  const long long ostr[3] = {static_cast<long long>(a.Hq) * D, D,
-                             static_cast<long long>(a.S) * a.Hq * D};
-  ok = ok && hopper::encode_bf16_4d(&p.o[0], a.o, qdims, ostr, L::W0, 64);
-  if (L::W1 > 0)
-    ok = ok &&
-         hopper::encode_bf16_4d(&p.q[1], a.q, qdims, qstr, L::W1, WG_BQ) &&
-         hopper::encode_bf16_4d(&p.k[1], a.k, kdims, kstr, L::W1, WG_BK) &&
-         hopper::encode_bf16_4d(&p.v[1], a.v, kdims, vstr, L::W1, WG_BK) &&
-         hopper::encode_bf16_4d(&p.o[1], a.o, qdims, ostr, L::W1, 64);
+  // out is contiguous (B, S, Hq, DV)
+  const long long ostr[3] = {static_cast<long long>(a.Hq) * DV, DV,
+                             static_cast<long long>(a.S) * a.Hq * DV};
+  // q and k a map a region of D, v and o of DV
+  const int qw[3] = {L::W0, L::W1, L::W2}, vw[2] = {RV::W0, RV::W1};
+  bool ok = true;
+  for (int r = 0; r < 3; ++r)
+    if (qw[r] > 0)
+      ok = ok &&
+           hopper::encode_bf16_4d(&p.q[r], a.q, qdims, qstr, qw[r], WG_BQ) &&
+           hopper::encode_bf16_4d(&p.k[r], a.k, kdims, kstr, qw[r], WG_BK);
+  for (int r = 0; r < 2; ++r)
+    if (vw[r] > 0)
+      ok = ok &&
+           hopper::encode_bf16_4d(&p.v[r], a.v, vdims, vstr, vw[r], WG_BK) &&
+           hopper::encode_bf16_4d(&p.o[r], a.o, odims, ostr, vw[r], 64);
   if (!ok) return ERR_TENSOR_MAP;
   p.lse = a.lse;
   p.q_pos = a.q_pos;
@@ -1053,8 +1110,8 @@ int launch_bf16(const Params& a, cudaStream_t stream) {
   p.n_qtiles = (a.S + WG_BQ - 1) / WG_BQ;
   p.scale_log2 = a.scale * 1.4426950408889634f;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      L::BYTES);
+      flash_fwd_bf16_kernel<D, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
   int device = 0, sms = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&device);
   if (err == cudaSuccess)
@@ -1063,7 +1120,7 @@ int launch_bf16(const Params& a, cudaStream_t stream) {
   // one persistent block an SM, or one an item if there are fewer
   const long long n_items = static_cast<long long>(a.B) * a.Hq * p.n_qtiles;
   const int grid = static_cast<int>(n_items < sms ? n_items : sms);
-  flash_fwd_bf16_kernel<D><<<grid, WG_THREADS, L::BYTES, stream>>>(p);
+  flash_fwd_bf16_kernel<D, DV><<<grid, WG_THREADS, L::BYTES, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -1071,14 +1128,15 @@ int launch_bf16(const Params& a, cudaStream_t stream) {
 
 // Plain C interface, loaded with ctypes.  Returns 0 when the launch was
 // accepted, else a cudaError_t or ERR_TENSOR_MAP (-1); `dtype` is 0 for
-// float32, 1 for bfloat16; `lse` is a contiguous f32 (B,Hq,S) or null.
+// float32, 1 for bfloat16; `lse` is a contiguous f32 (B,Hq,S) or null;
+// D is q's and k's head dim, Dv v's and out's.
 // The caller has checked shapes, strides and dtypes; for bfloat16 it has
 // also checked what TMA needs: 16-byte aligned bases and strides of B, S
 // and H that are multiples of 8 elements.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* o, float* lse, const int* q_pos,
                          const int* k_pos, int B, int S, int T, int Hq,
-                         int Hkv, int D, long long sqb,
+                         int Hkv, int D, int Dv, long long sqb,
                          long long sqs, long long sqh, long long skb,
                          long long sks, long long skh, long long svb,
                          long long svs, long long svh, int window,
@@ -1109,6 +1167,12 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   p.causal = causal;
   p.scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D != Dv) {
+    if (D == 192 && Dv == 128)
+      return dtype == 0 ? launch_f32<192, 128>(p, st)
+                        : launch_bf16<192, 128>(p, st);
+    return cudaErrorInvalidValue;
+  }
   if (dtype == 0) {
     if (D == 16) return launch_f32<16>(p, st);
     if (D == 32) return launch_f32<32>(p, st);

@@ -42,6 +42,9 @@ from .ref import attention_ref, flash_bwd_ref
 launches = 0
 
 HEAD_DIMS = (16, 32, 64, 80, 128)
+# (qk head dim, v head dim) pairs where they differ: DeepSeek-V2's latent
+# attention expanded for prefill, qk nope 128 + rope 64, v 128
+SPLIT_HEAD_DIMS = ((192, 128),)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu",)
 _TMA_ALIGN = 16               # bytes, for a tensor map's base and strides
@@ -89,7 +92,7 @@ def _kernel():
     lib = _build.load("flash_fwd", _SOURCES)
     fn = lib.flash_fwd
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p] * 7 + [i] * 6 + [ll] * 9 + [i] * 3 + [p]
+    fn.argtypes = [p] * 7 + [i] * 7 + [ll] * 9 + [i] * 3 + [p]
     fn.restype = ctypes.c_int
     lib.flash_fwd_error_string.argtypes = [ctypes.c_int]
     lib.flash_fwd_error_string.restype = ctypes.c_char_p
@@ -109,10 +112,11 @@ def _check(q, k, v, q_pos, k_pos) -> None:
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("q, k, v must be 4-d: (B,S,Hq,D), (B,T,Hkv,D)")
+        raise ValueError("q, k, v must be 4-d: (B,S,Hq,D), (B,T,Hkv,D), "
+                         "(B,T,Hkv,Dv)")
     B, S, Hq, D = q.shape
-    T, Hkv = k.shape[1], k.shape[2]
-    if tuple(k.shape) != (B, T, Hkv, D) or v.shape != k.shape:
+    T, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if tuple(k.shape) != (B, T, Hkv, D) or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} do not agree")
     if S < 1 or T < 1 or Hkv < 1 or Hq % Hkv or (S + 63) // 64 > 65535 \
@@ -120,9 +124,10 @@ def _check(q, k, v, q_pos, k_pos) -> None:
         raise ValueError(f"need 1 <= S < 2**22, T >= 1, Hq % Hkv == 0 and "
                          f"fewer than 2**31 (batch, head, 128-row) tiles "
                          f"(B={B}, S={S}, T={T}, Hq={Hq}, Hkv={Hkv})")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not supported; kernel takes "
-                         f"{HEAD_DIMS}")
+    if not (D == Dv and D in HEAD_DIMS) and (D, Dv) not in SPLIT_HEAD_DIMS:
+        raise ValueError(f"head dims qk {D}, v {Dv} not supported; kernel "
+                         f"takes {HEAD_DIMS} for both or (qk, v) in "
+                         f"{SPLIT_HEAD_DIMS}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtypes q {q.dtype} k {k.dtype} v {v.dtype}: "
                          f"all must be one of {list(_DTYPES)}")
@@ -144,7 +149,7 @@ def _launch(q, k, v, q_pos, k_pos, window: int, causal: bool,
     global launches
     _check(q, k, v, q_pos, k_pos)
     B, S, Hq, D = q.shape
-    T, Hkv = k.shape[1], k.shape[2]
+    T, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     if q.dtype == torch.bfloat16:
         (q, sq), (k, sk), (v, sv) = tma_operands(q, k, v)
         # the kernel reads positions 16 bytes at a time
@@ -153,7 +158,7 @@ def _launch(q, k, v, q_pos, k_pos, window: int, causal: bool,
     else:
         sq, sk, sv = (t.stride()[:3] for t in (q, k, v))
     lib = _kernel()
-    out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, S, Hq, Dv), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
            if want_lse else None)
     with torch.cuda.device(q.device):
@@ -161,7 +166,7 @@ def _launch(q, k, v, q_pos, k_pos, window: int, causal: bool,
         err = lib.flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
-            q_pos.data_ptr(), k_pos.data_ptr(), B, S, T, Hq, Hkv, D,
+            q_pos.data_ptr(), k_pos.data_ptr(), B, S, T, Hq, Hkv, D, Dv,
             *sq, *sk, *sv, int(window), int(bool(causal)), _DTYPES[q.dtype],
             stream)
     if err:
@@ -186,12 +191,14 @@ def visible_pairs(S: int, T: int, window: int, causal: bool) -> int:
 
 def work(B: int, S: int, T: int, Hq: int, Hkv: int, D: int, *,
          window: int = 0, causal: bool = True, itemsize: int = 2,
-         want_lse: bool = False) -> tuple[int, int]:
-    """(FLOPs, bytes) of one call: a QK^T and a PV product for every
-    visible pair, 2 FLOP per multiply-add; q, k, v and both positions read
-    once, the output (and the f32 lse) written once."""
-    flops = 4 * B * Hq * visible_pairs(S, T, window, causal) * D
-    nbytes = (2 * B * S * Hq * D + 2 * B * T * Hkv * D) * itemsize \
+         want_lse: bool = False, Dv: int | None = None) -> tuple[int, int]:
+    """(FLOPs, bytes) of one call: a QK^T product at head dim D and a PV
+    product at v's head dim Dv (D where not given) for every visible pair,
+    2 FLOP per multiply-add; q, k, v and both positions read once, the
+    output (and the f32 lse) written once."""
+    Dv = D if Dv is None else Dv
+    flops = 2 * B * Hq * visible_pairs(S, T, window, causal) * (D + Dv)
+    nbytes = (B * S * Hq * (D + Dv) + B * T * Hkv * (D + Dv)) * itemsize \
         + 4 * (S + T) + (4 * B * Hq * S if want_lse else 0)
     return flops, nbytes
 
@@ -201,7 +208,8 @@ def op_work(q, k, v, q_pos, k_pos, window, causal, want_lse
     """``work`` of one ``flash_fwd`` call, from its arguments."""
     B, S, Hq, D = q.shape
     return work(B, S, k.shape[1], Hq, k.shape[2], D, window=window,
-                causal=causal, itemsize=q.element_size(), want_lse=want_lse)
+                causal=causal, itemsize=q.element_size(), want_lse=want_lse,
+                Dv=v.shape[3])
 
 
 _LIB = torch.library.Library("repro_torch", "FRAGMENT")
@@ -223,12 +231,13 @@ _LIB.impl("flash_fwd", _flash_cuda, "CUDA")
 @torch.library.register_fake("repro_torch::flash_fwd", lib=_LIB)
 def _flash_fake(q, k, v, q_pos, k_pos, window, causal, want_lse):
     B, S, Hq, D = q.shape
-    if k.dim() != 4 or k.shape[0] != B or k.shape[3] != D \
-            or v.shape != k.shape or Hq % k.shape[2]:
+    if k.dim() != 4 or k.shape[0] != B or k.shape[3] != D or v.dim() != 4 \
+            or v.shape[:3] != k.shape[:3] or Hq % k.shape[2]:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} do not agree")
     lse = (B, Hq, S) if want_lse else (0,)
-    return q.new_empty((B, S, Hq, D)), q.new_empty(lse, dtype=torch.float32)
+    return (q.new_empty((B, S, Hq, v.shape[3])),
+            q.new_empty(lse, dtype=torch.float32))
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_fwd, get_raw=True)
@@ -276,8 +285,8 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention_fwd(q, k, v, q_pos, k_pos, *, window: int = 0,
                         causal: bool = True, impl: str = "auto",
                         return_lse: bool = False):
-    """q: (B,S,Hq,D); k,v: (B,T,Hkv,D); int32 q_pos (S,), k_pos (T,).
-    Returns (B,S,Hq,D) in q's dtype, and with ``return_lse`` also the
+    """q: (B,S,Hq,D); k: (B,T,Hkv,D); v: (B,T,Hkv,Dv); int32 q_pos (S,),
+    k_pos (T,).  Returns (B,S,Hq,Dv) in q's dtype, and with ``return_lse`` also the
     rows' log-sum-exp, f32 (B,Hq,S).  impl: auto | ref.  Differentiable
     (through ``FlashAttention``) when grad is enabled and q, k or v
     requires grad.  DTensors run on each rank's local shards

@@ -39,7 +39,8 @@ def _mask(q_pos, k_pos, window: int, causal: bool) -> torch.Tensor:
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   q_pos: torch.Tensor, k_pos: torch.Tensor, window: int = 0,
                   causal: bool = True, return_lse: bool = False):
-    """q: (B,S,Hq,D); k,v: (B,T,Hkv,D); q_pos (S,), k_pos (T,) int.
+    """q: (B,S,Hq,D); k: (B,T,Hkv,D); v: (B,T,Hkv,Dv); q_pos (S,), k_pos
+    (T,) int; the output (B,S,Hq,Dv).
 
     Query head h reads kv head h // (Hq // Hkv), the mapping of the
     reference's ``jnp.repeat(k, G, axis=2)``.  Mask: ``k_pos >= 0``; if
@@ -58,7 +59,7 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgst,bthd->bshgd", probs, v.float())
-    out = out.reshape(B, S, Hq, D).to(q.dtype)
+    out = out.reshape(B, S, Hq, v.shape[3]).to(q.dtype)
     if not return_lse:
         return out
     m_safe = scores.amax(dim=-1).clamp(min=-1e29)
@@ -84,18 +85,18 @@ def flash_bwd_ref(q, k, v, q_pos, k_pos, out, lse, dout, window: int = 0,
     products take p and ds in q's dtype, sums are f32, and dq, dk, dv go
     back to the inputs' dtypes."""
     B, S, Hq, D = q.shape
-    T, Hkv = k.shape[1], k.shape[2]
+    T, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     G = Hq // Hkv
     scale = 1.0 / math.sqrt(D)
     f32 = torch.float32
     qg = q.reshape(B, S, Hkv, G, D)
-    dog = dout.reshape(B, S, Hkv, G, D)
+    dog = dout.reshape(B, S, Hkv, G, Dv)
     lse_g = lse.reshape(B, Hkv, G, S)
     delta = torch.einsum("bshgd,bshgd->bhgs", dog.to(f32),
-                         out.reshape(B, S, Hkv, G, D).to(f32))
+                         out.reshape(B, S, Hkv, G, Dv).to(f32))
     dq = torch.zeros((B, S, Hkv, G, D), dtype=f32, device=q.device)
     dk = torch.zeros((B, T, Hkv, D), dtype=f32, device=q.device)
-    dv = torch.zeros((B, T, Hkv, D), dtype=f32, device=q.device)
+    dv = torch.zeros((B, T, Hkv, Dv), dtype=f32, device=q.device)
     for t0 in range(0, T, KV_CHUNK):
         tk = slice(t0, t0 + KV_CHUNK)
         k_blk, v_blk = k[:, tk], v[:, tk]

@@ -24,7 +24,7 @@ import torch
 
 from .. import resolve_device
 from ..cluster import ROUTERS, WORKLOADS
-from ..configs import ARCHS, get_smoke_config
+from ..configs import ARCHS, PORT_ONLY, get_smoke_config
 from ..models import init_params
 from ..serving.engine import (PREFILL_MS_PER_TOK, Request, SimServeEngine,
                               TorchServeEngine, make_admission)
@@ -32,7 +32,8 @@ from ..serving.engine import (PREFILL_MS_PER_TOK, Request, SimServeEngine,
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-0.6b", choices=ARCHS)
+    ap.add_argument("--arch", default="qwen3-0.6b",
+                    choices=ARCHS + list(PORT_ONLY))
     ap.add_argument("--admission", default="gcr",
                     choices=["none", "gcr", "gcr_pod"])
     ap.add_argument("--streams", type=int, default=8)

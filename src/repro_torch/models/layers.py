@@ -36,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from ..kernels import _sharded
 from ..kernels.flash_attention.ops import flash_attention_fwd
 from ..kernels.flash_attention.ref import attention_ref
+from ..runtime import trace
 
 NEG_INF = -1e30
 
@@ -114,6 +115,25 @@ class Attention(nn.Module):
             self.k_norm = _param((d_head,), device, dtype)
 
 
+class MLA(nn.Module):
+    """Parameters of DeepSeek-V2's latent attention without a q latent
+    (the port's own; the reference has none): ``wq`` (d, H x (nope +
+    rope)), ``wkv_a`` (d, r + rope) giving the latent c_kv and one rope
+    key shared by every head, ``kv_norm`` (r,) on c_kv, ``wkv_b`` (r, H x
+    (nope + v)) giving each head's k_nope and v, ``wo`` (H x v, d).  Head
+    h's columns are ``[h * width, (h + 1) * width)``, nope before rope
+    (q) and k_nope before v (kv_b), as HF's ``view(..., H, width)``."""
+
+    def __init__(self, d_model: int, n_heads: int, rank: int, nope: int,
+                 rope: int, v_dim: int, *, device, dtype) -> None:
+        super().__init__()
+        self.wq = _param((d_model, n_heads * (nope + rope)), device, dtype)
+        self.wkv_a = _param((d_model, rank + rope), device, dtype)
+        self.kv_norm = _param((rank,), device, dtype)
+        self.wkv_b = _param((rank, n_heads * (nope + v_dim)), device, dtype)
+        self.wo = _param((n_heads * v_dim, d_model), device, dtype)
+
+
 class MLP(nn.Module):
     """Parameters of ``repro.models.layers.mlp_params`` (SwiGLU)."""
 
@@ -185,6 +205,59 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """HF's ``yarn_get_mscale``: 0.1 mscale ln(factor) + 1 (1 at factor
+    <= 1)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_correction_range(beta_fast: float, beta_slow: float, dim: int,
+                          theta: float, original_len: int
+                          ) -> Tuple[int, int]:
+    """HF's ``yarn_find_correction_range``: the rotary pair indices where
+    the ramp from unscaled (fast rotations) to scaled (slow) frequencies
+    starts and ends."""
+    def at(rotations):
+        return (dim * math.log(original_len / (rotations * 2 * math.pi))
+                / (2 * math.log(theta)))
+    return (max(math.floor(at(beta_fast)), 0),
+            min(math.ceil(at(beta_slow)), dim - 1))
+
+
+def yarn_frequencies(dim: int, theta: float, factor: float,
+                     original_len: int, beta_fast: float, beta_slow: float,
+                     device=None) -> torch.Tensor:
+    """HF's ``DeepseekV2YarnRotaryEmbedding`` inverse frequencies (dim /
+    2,), f32: theta^(-2i/dim) below the ramp, that over ``factor`` above
+    it, blended linearly across it."""
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    extra = 1.0 / theta ** exps
+    inter = 1.0 / (factor * theta ** exps)
+    lo, hi = yarn_correction_range(beta_fast, beta_slow, dim, theta,
+                                   original_len)
+    hi = hi + 0.001 if lo == hi else hi
+    ramp = ((torch.arange(dim // 2, dtype=torch.float32, device=device) - lo)
+            / (hi - lo)).clamp(0, 1)
+    return inter * ramp + extra * (1 - ramp)
+
+
+def yarn_rope(x: torch.Tensor, positions: torch.Tensor,
+              inv_freq: torch.Tensor, cos_scale: float) -> torch.Tensor:
+    """x (B, S, H, dim) rotated as HF's DeepSeek-V2 ``apply_rotary_pos_emb``
+    rotates it: the interleaved pairs (2i, 2i + 1) are first gathered into
+    halves (x[0::2], then x[1::2]), then the first half rotated against
+    the second by angle position x inv_freq[i], cos and sin times
+    ``cos_scale`` (mscale / mscale_all_dim).  Returns f32."""
+    B, S, H, dim = x.shape
+    x = x.float().view(B, S, H, dim // 2, 2).transpose(-1, -2) \
+        .reshape(B, S, H, dim)
+    ang = positions.float()[:, None] * inv_freq                # (S, dim/2)
+    cos = (torch.cos(ang) * cos_scale)[:, None, :]
+    sin = (torch.sin(ang) * cos_scale)[:, None, :]
+    x1, x2 = x[..., :dim // 2], x[..., dim // 2:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
@@ -221,13 +294,22 @@ def _cache_write(cache: Dict, k: torch.Tensor, v: torch.Tensor,
     if _sharded.is_sharded(cache["k"]):
         _sharded.cache_write(cache, k, v, cache_pos)
         return cache
-    Tc = cache["k"].shape[1]
-    S = k.shape[1]
+    return _ring_write(cache, {"k": k, "v": v}, cache_pos)
+
+
+def _ring_write(cache: Dict, new: Dict[str, torch.Tensor],
+                cache_pos: int) -> Dict:
+    """Write the last min(S, Tc) tokens of each leaf of ``new`` (B, S,
+    ...) into the ring buffer of the same name (B, Tc, ...), in place;
+    the leaves share S and Tc, so one slot index serves them all.
+    Returns ``cache``."""
+    first = next(iter(new))
+    Tc, S = cache[first].shape[1], new[first].shape[1]
     Lw = min(S, Tc)
     slots = (cache_pos + S - Lw
-             + torch.arange(Lw, device=k.device)) % Tc
-    cache["k"].index_copy_(1, slots, k[:, -Lw:].to(cache["k"].dtype))
-    cache["v"].index_copy_(1, slots, v[:, -Lw:].to(cache["v"].dtype))
+             + torch.arange(Lw, device=new[first].device)) % Tc
+    for name, t in new.items():
+        cache[name].index_copy_(1, slots, t[:, -Lw:].to(cache[name].dtype))
     return cache
 
 
@@ -342,6 +424,122 @@ def multihead_attention(
                                   causal=causal, impl=impl)
         out = sc(out, "heads")
     return merge_heads(out, B, S, n_heads * d_head) @ p.wo, cache
+
+
+# ---------------------------------------------------------------------------
+# Latent attention (DeepSeek-V2's MLA)
+# ---------------------------------------------------------------------------
+
+_YARN: Dict[tuple, torch.Tensor] = {}
+
+
+def _yarn_inv_freq(dim: int, theta: float, yarn: Tuple, device
+                   ) -> torch.Tensor:
+    """``yarn_frequencies`` (plain rotary frequencies without a factor),
+    made once a device."""
+    key = (dim, theta, yarn, str(device))
+    if key not in _YARN:
+        factor, original, fast, slow = yarn[:4]
+        _YARN[key] = (yarn_frequencies(dim, theta, factor, original, fast,
+                                       slow, device) if factor
+                      else rope_frequencies(dim, theta, device))
+    return _YARN[key]
+
+
+def mla_scales(yarn: Tuple) -> Tuple[float, float]:
+    """(cos_scale, softmax_mult) of YaRN (factor, original length,
+    beta_fast, beta_slow, mscale, mscale_all_dim): cos and sin are
+    scaled by mscale / mscale_all_dim's ``yarn_mscale``s, and the
+    softmax scale, head_dim^-0.5, by mscale_all_dim's squared (HF's
+    ``DeepseekV2Attention``).  (1, 1) without YaRN."""
+    factor, _, _, _, mscale, mscale_all = yarn
+    if not factor:
+        return 1.0, 1.0
+    cos_scale = yarn_mscale(factor, mscale) / yarn_mscale(factor, mscale_all)
+    mult = yarn_mscale(factor, mscale_all) ** 2 if mscale_all else 1.0
+    return cos_scale, mult
+
+
+def mla_attention(
+    p: MLA,
+    x: torch.Tensor,                # (B, S, d_model)
+    positions: torch.Tensor,        # (S,) int32 absolute positions of x
+    cache: Optional[Dict],          # {"c_kv", "k_pe"} ring buffers or None
+    cache_pos: int,                 # tokens already in the cache
+    *,
+    n_heads: int,
+    nope: int,
+    rope: int,
+    v_dim: int,
+    rope_theta: float,
+    yarn: Tuple,                    # (factor, original length, beta_fast,
+                                    #  beta_slow, mscale, mscale_all_dim)
+    eps: float,
+    decode: bool = False,
+    impl: str = "auto",             # prompt attention: auto | ref
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """DeepSeek-V2's latent attention; returns (output (B,S,d), cache).
+
+    q (nope + rope a head) and the latent c_kv with one rope key k_pe
+    shared by every head are projected from x; c_kv is RMS-normed
+    (``kv_norm``); q's rope part and k_pe are rotated by ``yarn_rope``.
+    The cache holds c_kv (B, T, r) and k_pe (B, T, rope), ring buffers
+    as the KV caches (``_ring_write``).
+
+    Prompt (``decode`` False; training and the teacher-forcing forward
+    too): the span ``repro_torch.model.mla.expand`` expands c_kv by
+    ``wkv_b`` to each head's k_nope and v, and runs
+    ``flash_attention_fwd`` at qk nope + rope, v ``v_dim``, q multiplied
+    by YaRN's softmax factor (the kernel scales by (nope + rope)^-0.5).
+
+    Decode: the absorbed form, in the device span
+    ``repro_torch.model.mla.decode``: q_nope taken through kv_b's k half
+    to the latent width, scores over the cached c_kv and k_pe (f32
+    softmax, YaRN's scale, masked by the slots' positions), the
+    probabilities times c_kv, then kv_b's v half; the counter
+    ``mla.latent_rows`` adds the B x written positions read."""
+    B, S, _ = x.shape
+    H, rank = n_heads, p.kv_norm.shape[0]
+    dtype = x.dtype
+    inv_freq = _yarn_inv_freq(rope, rope_theta, tuple(yarn[:4]), x.device)
+    cos_scale, mult = mla_scales(tuple(yarn))
+    q = (x @ p.wq).view(B, S, H, nope + rope)
+    kv = x @ p.wkv_a
+    c_kv = rms_norm(kv[..., :rank], p.kv_norm, eps)
+    k_pe = yarn_rope(kv[..., None, rank:], positions, inv_freq,
+                     cos_scale).to(dtype)                       # (B,S,1,rope)
+    q_pe = yarn_rope(q[..., nope:], positions, inv_freq, cos_scale)
+    if cache is not None:
+        _ring_write(cache, {"c_kv": c_kv, "k_pe": k_pe[:, :, 0]}, cache_pos)
+    if decode:
+        T = cache["c_kv"].shape[1]
+        with trace.device_span("repro_torch.model.mla.decode", x.device):
+            w = p.wkv_b.view(rank, H, nope + v_dim)
+            q_lat = torch.einsum("bshn,chn->bshc", q[..., :nope],
+                                 w[..., :nope])
+            scores = (torch.einsum("bshc,btc->bhst", q_lat, cache["c_kv"])
+                      .float()
+                      + torch.einsum("bshr,btr->bhst", q_pe.to(dtype),
+                                     cache["k_pe"]).float())
+            scores = scores * (mult / math.sqrt(nope + rope))
+            k_pos = _cache_slot_positions(T, cache_pos, S, x.device)
+            visible = (k_pos[None, :] <= positions[:, None]) \
+                & (k_pos >= 0)[None, :]
+            probs = torch.softmax(torch.where(visible, scores, NEG_INF),
+                                  dim=-1).to(dtype)
+            o_lat = torch.einsum("bhst,btc->bshc", probs, cache["c_kv"])
+            out = torch.einsum("bshc,chv->bshv", o_lat, w[..., nope:])
+        trace.count("mla.latent_rows", B * min(cache_pos + S, T))
+    else:
+        with trace.span("repro_torch.model.mla.expand"):
+            kvb = (c_kv @ p.wkv_b).view(B, S, H, nope + v_dim)
+            k = torch.cat([kvb[..., :nope],
+                           k_pe.expand(B, S, H, rope)], dim=-1)
+            qs = torch.cat([q[..., :nope].float(), q_pe], dim=-1)
+            qs = (qs * mult).to(dtype) if mult != 1.0 else qs.to(dtype)
+            out = flash_attention_fwd(qs, k, kvb[..., nope:], positions,
+                                      positions, causal=True, impl=impl)
+    return out.reshape(B, S, H * v_dim) @ p.wo, cache
 
 
 # ---------------------------------------------------------------------------

@@ -35,15 +35,23 @@ from .layers import _param, dense_init_, no_sc
 
 class MoE(nn.Module):
     """Parameters of ``repro.models.moe.moe_params``.  The router is f32
-    whatever the model's dtype, as in the reference."""
+    whatever the model's dtype, as in the reference.  With ``shared_d_ff``
+    (DeepSeek-V2's shared experts, the port's own) also one SwiGLU of that
+    width that every token passes through: ``shared_wi_gate``,
+    ``shared_wi_up`` (d, shared_d_ff) and ``shared_wo``."""
 
     def __init__(self, d_model: int, d_ff: int, n_experts: int, *, device,
-                 dtype) -> None:
+                 dtype, shared_d_ff: int = 0) -> None:
         super().__init__()
         self.router = _param((d_model, n_experts), device, torch.float32)
         self.wi_gate = _param((n_experts, d_model, d_ff), device, dtype)
         self.wi_up = _param((n_experts, d_model, d_ff), device, dtype)
         self.wo = _param((n_experts, d_ff, d_model), device, dtype)
+        if shared_d_ff:
+            self.shared_wi_gate = _param((d_model, shared_d_ff), device,
+                                         dtype)
+            self.shared_wi_up = _param((d_model, shared_d_ff), device, dtype)
+            self.shared_wo = _param((shared_d_ff, d_model), device, dtype)
 
 
 @torch.no_grad()
@@ -51,6 +59,9 @@ def moe_init_(p: MoE, generator: torch.Generator) -> None:
     """The reference's laws: every matrix N(0, 1/in_dim)."""
     for w in (p.router, p.wi_gate, p.wi_up, p.wo):
         dense_init_(w, generator)
+    if hasattr(p, "shared_wo"):
+        for w in (p.shared_wi_gate, p.shared_wi_up, p.shared_wo):
+            dense_init_(w, generator)
 
 
 def _capacity(n_tokens: int, n_experts: int, top_k: int,
@@ -59,13 +70,18 @@ def _capacity(n_tokens: int, n_experts: int, top_k: int,
     return max(8, ((cap + 7) // 8) * 8)   # pad to sublane multiple
 
 
-def router_topk(router: torch.Tensor, x: torch.Tensor, top_k: int):
-    """f32 router logits, probabilities, and the top-k gates (renormalised)
-    and experts of every token: (logits, probs, gate_vals, expert_idx)."""
+def router_topk(router: torch.Tensor, x: torch.Tensor, top_k: int,
+                renormalize: bool = True):
+    """f32 router logits, probabilities, and the top-k gates and experts
+    of every token: (logits, probs, gate_vals, expert_idx).  The gates
+    are renormalised to sum 1 unless ``renormalize`` is False
+    (DeepSeek-V2's ``norm_topk_prob``), which keeps the probabilities."""
     logits = x.float() @ router                                # (B,S,E)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = torch.topk(probs, top_k, dim=-1)   # (B,S,k)
-    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    if renormalize:
+        gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(
+            1e-9)
     return logits, probs, gate_vals, expert_idx
 
 
@@ -117,13 +133,14 @@ class _Dispatch(torch.autograd.Function):
 
 
 def _dispatch(router: torch.Tensor, x: torch.Tensor, E: int, k: int,
-              cap: int, offset):
+              cap: int, offset, renormalize: bool = True):
     """Routing, admission and the scatter into the capacity buffers, per
     batch row: (expert_in (B,E,C,D), gate_vals (B,S,k) zeroed where not
     admitted, the combine's slot index (B,S,k), and for the aux metrics
     the router's logits and probabilities, expert_idx and admitted)."""
     B, S, D = x.shape
-    logits, probs, gate_vals, expert_idx = router_topk(router, x, k)
+    logits, probs, gate_vals, expert_idx = router_topk(router, x, k,
+                                                       renormalize)
     rank_in_expert = admission_ranks(expert_idx, E, offset)
     admitted = rank_in_expert < cap                            # active set
     gate_vals = gate_vals * admitted                           # passive -> 0
@@ -174,6 +191,7 @@ def moe_mlp(
     impl: str = "auto",              # expert products: auto | ref
     sc=no_sc,                        # sharding hook
     with_aux: bool = True,           # compute the aux metrics
+    renormalize: bool = True,        # top-k gates summed to 1
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Returns (output (B,S,D) in x's dtype, aux metrics incl. the
     load-balance loss), as ``repro.models.moe.moe_mlp``; without
@@ -185,15 +203,23 @@ def moe_mlp(
 
     Under a recording profiler the counter ``moe.rows`` adds the rows
     handed to the expert products (B·E·C) and ``moe.rows_with_token`` the
-    admitted (token, expert) pairs that fill them."""
+    admitted (token, expert) pairs that fill them.
+
+    A layer with shared experts (``p.shared_wo``) adds their SwiGLU of
+    every token, a dense product beside the routed ones, to the output
+    (one buffer-free path: no token of it is dropped)."""
     B, S, D = x.shape
     E, k = n_experts, top_k
     cap = _capacity(S, E, k, capacity_factor)
     offset = priority_offset if gcr_admission else None
     if isinstance(x, DTensor):
+        if not renormalize or hasattr(p, "shared_wo"):
+            raise NotImplementedError(
+                "sharded MoE: shared experts and gates that are not "
+                "renormalised run on one device only")
         return _sharded_moe(p, x, E, k, cap, offset, impl, sc, with_aux)
     (expert_in, gate_vals, combine_idx, logits, probs, expert_idx,
-     admitted) = _dispatch(p.router, x, E, k, cap, offset)
+     admitted) = _dispatch(p.router, x, E, k, cap, offset, renormalize)
     trace.count("moe.rows", B * E * cap)
     trace.count("moe.rows_with_token", admitted)
     expert_in = sc(expert_in, "moe_buf")
@@ -202,6 +228,9 @@ def moe_mlp(
         * grouped_matmul(expert_in, p.wi_up, impl=impl)
     expert_out = sc(grouped_matmul(h, p.wo, impl=impl), "moe_buf")
     out = _combine(expert_out, combine_idx, gate_vals, x.dtype)
+    if hasattr(p, "shared_wo"):
+        out = out + (F.silu(x @ p.shared_wi_gate) * (x @ p.shared_wi_up)) \
+            @ p.shared_wo
     if not with_aux:
         return out, {}
 

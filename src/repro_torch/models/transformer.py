@@ -12,7 +12,12 @@ three structural extensions:
 * the frontend stubs: ``batch["patches"]`` (``vision_stub``) and
   ``batch["frames"]`` (``audio_stub``) are precomputed embeddings,
   projected by ``frontend_proj`` and prepended to the tokens' embeddings
-  (vision) or fed to the encoder (audio).
+  (vision) or fed to the encoder (audio);
+* DeepSeek-V2 (the port's own): latent attention (``layers.MLA``) in
+  every block, ``n_dense_layers`` leading attention + dense-MLP blocks
+  held in ``dense_layers`` (outside ``layers``, so that every index of
+  ``layers`` holds the same leaves), run before ``layers``, and MoE
+  blocks with shared experts and gates that are not renormalised.
 
 Three modes share the block code, as in the reference:
   train   : ``forward_train``, the full-sequence forward to the loss, each
@@ -34,7 +39,8 @@ the reference's pytree (``layers.<i>.attn.wq`` for the reference's
 "B", "C"}}`` (mamba2) or ``{"wkv", "tm_shift", "cm_shift"}`` (rwkv6),
 ``shared`` one ring buffer per invocation of the shared block, ``cross``
 one static ``{"k", "v"}`` of the encoder's length per decoder layer.
-They are updated in place.
+A latent-attention layer holds ``{"c_kv", "k_pe"}`` ring buffers, the
+leading dense layers first in ``layers``.  They are updated in place.
 """
 
 from __future__ import annotations
@@ -61,12 +67,33 @@ def _torch_dtype(name: str) -> torch.dtype:
     return dtype
 
 
-def _check_supported(cfg: ModelConfig) -> None:
+def _check_supported(cfg: ModelConfig, *, train: bool = False,
+                     sharded: bool = False) -> None:
+    """Raises NotImplementedError for a layout or mode the port does not
+    run: latent attention serves on one device, and does not train."""
+    if cfg.is_mla and (train or sharded):
+        raise NotImplementedError(
+            f"{cfg.name}: latent attention (DeepSeek-V2) is served on one "
+            f"device only; {'training' if train else 'sharding'} it is not "
+            "ported")
     if set(cfg.block_pattern) not in ({"attn"}, {"moe"}, {"mamba2"},
                                       {"rwkv6"}):
         raise NotImplementedError(
             f"{cfg.name}: repro_torch runs stacks of one block kind (attn, "
             f"moe, mamba2 or rwkv6), not {cfg.block_pattern}")
+    if (cfg.n_dense_layers or cfg.moe_shared_experts) and not cfg.is_mla:
+        raise NotImplementedError(
+            f"{cfg.name}: leading dense layers and shared experts run with "
+            "latent attention (DeepSeek-V2) only")
+    if cfg.is_mla and (cfg.block_pattern[0] not in ("attn", "moe")
+                       or cfg.sliding_window or cfg.qk_norm
+                       or cfg.shared_attn_every or cfg.is_encdec
+                       or cfg.frontend != "none"
+                       or cfg.n_dense_layers >= cfg.n_layers):
+        raise NotImplementedError(
+            f"{cfg.name}: latent attention runs in attn / moe decoder "
+            "stacks without a window, QK norm, shared block, encoder or "
+            "frontend, with at least one layer after the dense ones")
     if cfg.frontend not in ("none", "audio_stub", "vision_stub"):
         raise NotImplementedError(f"{cfg.name}: unknown frontend "
                                   f"{cfg.frontend!r}")
@@ -76,6 +103,7 @@ class Block(nn.Module):
     """One layer of ``kind``: ln1 and ``mamba`` (``mamba2``); ln1, ln2
     and ``rwkv`` (``rwkv6``); or ln1, attn, ln2 and ``mlp`` (``attn``,
     also the shared block and the encoder's layers) or ``moe`` (``moe``).
+    With latent attention (``cfg.is_mla``) attn is an ``MLA``.
     With ``cross`` (the decoder blocks of an encoder-decoder) also
     ``ln_cross`` and ``cross``, an attention without QK norm."""
 
@@ -94,9 +122,13 @@ class Block(nn.Module):
                                   cfg.ssm_heads, cfg.ssm_conv, device=device,
                                   dtype=dtype)
             return
-        self.attn = L.Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                                cfg.head_dim, cfg.qk_norm, device=device,
-                                dtype=dtype)
+        self.attn = (L.MLA(cfg.d_model, cfg.n_heads, cfg.kv_lora_rank,
+                           cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                           cfg.v_head_dim, device=device, dtype=dtype)
+                     if cfg.is_mla else
+                     L.Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                 cfg.head_dim, cfg.qk_norm, device=device,
+                                 dtype=dtype))
         self.ln2 = L._param((cfg.d_model,), device, dtype)
         if cross:
             self.ln_cross = L._param((cfg.d_model,), device, dtype)
@@ -104,8 +136,9 @@ class Block(nn.Module):
                                      cfg.n_kv_heads, cfg.head_dim, False,
                                      device=device, dtype=dtype)
         if kind == "moe":
-            self.moe = MOE.MoE(cfg.d_model, cfg.moe_d_ff, cfg.n_experts,
-                               device=device, dtype=dtype)
+            self.moe = MOE.MoE(
+                cfg.d_model, cfg.moe_d_ff, cfg.n_experts, device=device,
+                dtype=dtype, shared_d_ff=cfg.moe_shared_experts * cfg.moe_d_ff)
         else:
             self.mlp = L.MLP(cfg.d_model, cfg.d_ff, device=device,
                              dtype=dtype)
@@ -125,10 +158,14 @@ class Transformer(nn.Module):
         self.final_norm = L._param((cfg.d_model,), device, dtype)
         self.lm_head = L._param((cfg.d_model, cfg.vocab_padded), device,
                                 dtype)
+        if cfg.n_dense_layers:
+            self.dense_layers = nn.ModuleList(
+                Block(cfg, "attn", device=device, dtype=dtype)
+                for _ in range(cfg.n_dense_layers))
         self.layers = nn.ModuleList(
             Block(cfg, cfg.block_pattern[0], device=device, dtype=dtype,
                   cross=cfg.is_encdec)
-            for _ in range(cfg.n_layers))
+            for _ in range(cfg.n_layers - cfg.n_dense_layers))
         if cfg.shared_attn_every:
             self.shared_attn = Block(cfg, "attn", device=device, dtype=dtype)
         if cfg.is_encdec:
@@ -161,7 +198,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     L.embed_init_(params.embed, generator)
     params.final_norm.fill_(1.0)
     L.dense_init_(params.lm_head, generator)
-    blocks = list(params.layers)
+    blocks = list(getattr(params, "dense_layers", [])) + list(params.layers)
     if cfg.shared_attn_every:
         blocks.append(params.shared_attn)
     if cfg.is_encdec:
@@ -178,7 +215,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         if hasattr(blk, "rwkv"):
             R.rwkv6_init_(blk.rwkv, generator)
             continue
-        for w in (blk.attn.wq, blk.attn.wk, blk.attn.wv, blk.attn.wo):
+        if cfg.is_mla:
+            blk.attn.kv_norm.fill_(1.0)
+            attn_w = (blk.attn.wq, blk.attn.wkv_a, blk.attn.wkv_b,
+                      blk.attn.wo)
+        else:
+            attn_w = (blk.attn.wq, blk.attn.wk, blk.attn.wv, blk.attn.wo)
+        for w in attn_w:
             L.dense_init_(w, generator)
         if hasattr(blk, "cross"):
             blk.ln_cross.fill_(1.0)
@@ -220,6 +263,9 @@ def _cache_tree(cfg: ModelConfig, B: int, max_len: int, enc_len: int,
     def attn_cache():
         Tc = (min(max_len, cfg.sliding_window) if cfg.sliding_window
               else max_len)
+        if cfg.is_mla:
+            return {"c_kv": zeros(B, Tc, cfg.kv_lora_rank),
+                    "k_pe": zeros(B, Tc, cfg.qk_rope_head_dim)}
         shape = (B, Tc, cfg.n_kv_heads, cfg.head_dim)
         return {"k": zeros(*shape), "v": zeros(*shape)}
 
@@ -254,7 +300,8 @@ def _cache_tree(cfg: ModelConfig, B: int, max_len: int, enc_len: int,
 def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None,
                enc_len: int = 0) -> Dict:
     """Zeroed caches.  Attention: ring buffers of ``max_len`` slots, or the
-    sliding window when that is shorter.  Mamba2: the f32 SSM state and the
+    sliding window when that is shorter; latent attention: the latent
+    c_kv (B, T, kv_lora_rank) and rope key k_pe (B, T, rope) a layer.  Mamba2: the f32 SSM state and the
     convolutions' last K-1 inputs in the model's dtype.  RWKV6: the f32
     WKV state and the two (B, 1, D) shift states in the model's dtype.
     Encoder-decoder: also each decoder layer's cross-attention K/V of
@@ -276,6 +323,12 @@ def cache_layout(cfg: ModelConfig, B: int, max_len: int,
 # ---------------------------------------------------------------------------
 # Blocks and stack
 # ---------------------------------------------------------------------------
+
+
+def _yarn(cfg: ModelConfig) -> tuple:
+    """YaRN's parameters as ``layers.mla_attention`` takes them."""
+    return (cfg.yarn_factor, cfg.yarn_original_max_len, cfg.yarn_beta_fast,
+            cfg.yarn_beta_slow, cfg.yarn_mscale, cfg.yarn_mscale_all_dim)
 
 
 def _residual(sc, x, out):
@@ -300,12 +353,21 @@ def _apply_attn_block(cfg: ModelConfig, p: Block, x, positions, cache,
     ``.moe``."""
     with trace.span("repro_torch.model.attn"):
         h = sc(L.rms_norm(x, p.ln1, cfg.norm_eps), "block_in")
-        attn_out, cache = L.multihead_attention(
-            p.attn, h, positions, cache, cache_pos,
-            n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, d_head=cfg.head_dim,
-            qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
-            window=cfg.sliding_window, causal=causal, decode=decode,
-            eps=cfg.norm_eps, impl=impl, sc=sc)
+        if cfg.is_mla:
+            attn_out, cache = L.mla_attention(
+                p.attn, h, positions, cache, cache_pos,
+                n_heads=cfg.n_heads, nope=cfg.qk_nope_head_dim,
+                rope=cfg.qk_rope_head_dim, v_dim=cfg.v_head_dim,
+                rope_theta=cfg.rope_theta, yarn=_yarn(cfg),
+                eps=cfg.norm_eps, decode=decode, impl=impl)
+        else:
+            attn_out, cache = L.multihead_attention(
+                p.attn, h, positions, cache, cache_pos,
+                n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                d_head=cfg.head_dim, qk_norm=cfg.qk_norm,
+                rope_theta=cfg.rope_theta, window=cfg.sliding_window,
+                causal=causal, decode=decode, eps=cfg.norm_eps, impl=impl,
+                sc=sc)
         x = _residual(sc, x, attn_out)
     if hasattr(p, "cross"):
         hc = sc(L.rms_norm(x, p.ln_cross, cfg.norm_eps), "block_in")
@@ -323,7 +385,8 @@ def _apply_attn_block(cfg: ModelConfig, p: Block, x, positions, cache,
                 top_k=cfg.n_experts_active,
                 capacity_factor=cfg.moe_capacity_factor,
                 gcr_admission=cfg.gcr_moe, priority_offset=moe_offset,
-                impl=impl, sc=sc, with_aux=with_aux)
+                impl=impl, sc=sc, with_aux=with_aux,
+                renormalize=cfg.moe_renormalize)
             return _residual(sc, x, moe_out), cache, aux
     with trace.span("repro_torch.model.mlp"):
         h2 = sc(L.rms_norm(x, p.ln2, cfg.norm_eps), "block_in")
@@ -398,10 +461,13 @@ def _stack(cfg: ModelConfig, params: Transformer, x, positions,
     as an input of the unit, so the recomputation reads it as the forward
     did and its gradient flows back to the encoder.  ``sc`` is the
     sharding hook: each unit gathers its parameters through it
-    (``sc(p, "params")``) inside the recomputed region."""
+    (``sc(p, "params")``) inside the recomputed region.  The leading dense
+    layers (``dense_layers``) run first, on the first caches of
+    ``layers``."""
     k = cfg.shared_attn_every
     auxes = []
-    for i, lp in enumerate(params.layers):
+    stack = list(getattr(params, "dense_layers", [])) + list(params.layers)
+    for i, lp in enumerate(stack):
         shared = params.shared_attn if k and (i + 1) % k == 0 else None
         lcache = scache = lcross = None
         if caches is not None:
@@ -561,7 +627,7 @@ def forward_train(cfg: ModelConfig, params: Transformer, batch: Dict,
     MoE's admission order (GCR-MoE).  ``impl="ref"`` sends every kernel
     to its plain version on the card.  ``sc`` is the sharding hook
     (``parallel.ShardingRules.constrain``, or none)."""
-    _check_supported(cfg)
+    _check_supported(cfg, train=True)
     x, mask = _embed_inputs(cfg, params, batch, sc)
     positions = _positions(0, x.shape[1], x.device)
     cross_src = _encode(cfg, params, batch, remat, impl, sc)
@@ -592,6 +658,7 @@ def prefill(cfg: ModelConfig, params: Transformer, batch: Dict,
     ``impl="ref"`` sends prompt, encoder and cross-attention, the expert
     products, the SSD scan and the WKV to their plain versions even on
     the card (for comparing)."""
+    _check_supported(cfg, sharded=sc is not L.no_sc)
     x, _ = _embed_inputs(cfg, params, batch, sc)
     B, S = x.shape[:2]
     positions = _positions(0, S, x.device)
@@ -616,6 +683,8 @@ def decode_step(cfg: ModelConfig, params: Transformer, caches: Dict,
     """One serving step: tokens (B, 1) -> (logits (B, 1, V), caches).  The
     caches are updated in place and returned; cross-attention reads the
     cross caches prefill wrote."""
+    if sc is not L.no_sc:
+        _check_supported(cfg, sharded=True)
     x = sc(L.embed_lookup(sc(params.embed, "params"), tokens), "residual")
     pos = caches["pos"]
     positions = _positions(pos, tokens.shape[1], x.device)

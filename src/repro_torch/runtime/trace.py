@@ -15,6 +15,12 @@ kernels; ``counters()`` after it gives the job's counts (``reset`` clears
 them; ``TorchServeEngine.generate`` resets them at each entry it traces).
 Names are ``repro_torch.<layer>.<what>``.
 
+``device_span(name, device)`` is a span that, on a CUDA device, also
+records a pair of CUDA events on the current stream at its edges:
+``device_times()`` gives the stream's seconds between each pair, the
+card's time for the work launched inside (a host range times only the
+launches, which run ahead of the card).
+
 A range is opened with ``_RecordFunctionFast``, not
 ``torch.profiler.record_function``: the profiler files the latter as a
 user annotation, which it mirrors onto the card's timeline, where a span
@@ -30,10 +36,12 @@ import torch
 from torch._C._profiler import _RecordFunctionFast
 from torch.autograd import profiler as _profiler
 
-__all__ = ["count", "counters", "instant", "recording", "reset", "span"]
+__all__ = ["count", "counters", "device_span", "device_times", "instant",
+           "recording", "reset", "span"]
 
 _OFF = contextlib.nullcontext()
 _counts: Dict[str, List[Union[int, torch.Tensor]]] = {}
+_events: Dict[str, list] = {}
 
 
 def recording() -> bool:
@@ -47,6 +55,49 @@ def span(name: str):
     if _profiler._is_profiler_enabled:
         return _RecordFunctionFast(name)
     return _OFF
+
+
+class _DeviceSpan:
+    """The host range ``name`` and CUDA events at its edges."""
+
+    __slots__ = ("name", "range", "start")
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self.range = _RecordFunctionFast(name)
+
+    def __enter__(self):
+        self.range.__enter__()
+        self.start = torch.cuda.Event(enable_timing=True)
+        self.start.record()
+        return self
+
+    def __exit__(self, *exc):
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        _events.setdefault(self.name, []).append((self.start, end))
+        return self.range.__exit__(*exc)
+
+
+def device_span(name: str, device: torch.device):
+    """``span(name)``, with CUDA events at its edges where ``device`` is a
+    CUDA device (``device_times``)."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    if device.type != "cuda":
+        return _RecordFunctionFast(name)
+    return _DeviceSpan(name)
+
+
+def device_times() -> Dict[str, List[float]]:
+    """Each device span's seconds on its stream, by name, since the last
+    ``reset``; synchronises with the card."""
+    out = {}
+    for name, pairs in _events.items():
+        if pairs:
+            pairs[-1][1].synchronize()
+        out[name] = [s.elapsed_time(e) / 1e3 for s, e in pairs]
+    return out
 
 
 def instant(name: str) -> None:
@@ -65,6 +116,7 @@ def count(name: str, value: Union[int, torch.Tensor]) -> None:
 
 def reset() -> None:
     _counts.clear()
+    _events.clear()
 
 
 def counters() -> Dict[str, int]:

@@ -129,6 +129,32 @@ def test_non_cpu_tensor_never_falls_back_to_plain(monkeypatch):
     assert ops.launches == before
 
 
+def test_qk_and_v_head_dims_may_differ():
+    """q and k at 192, v at 128 (DeepSeek-V2's latent attention expanded
+    for prefill): the operator's shape function gives the output v's
+    head dim, the plain version computes softmax(q k^T / sqrt(192)) v,
+    and the work counts QK^T at 192 and PV at 128 for each of the 36
+    causal pairs of S = T = 8: 2 x 2 heads x 36 x 320 FLOP; q, k at 192
+    and v, out at 128, 8 x 2 x 320 values each side, bf16, and two int32
+    position vectors."""
+    q = torch.empty((1, 8, 2, 192), device="meta")
+    v = torch.empty((1, 8, 2, 128), device="meta")
+    pos = torch.empty((8,), dtype=torch.int32, device="meta")
+    assert ops.flash_attention_fwd(q, q, v, pos, pos).shape == (1, 8, 2, 128)
+    assert ops.work(1, 8, 8, 2, 2, 192, Dv=128) == (
+        2 * 2 * 36 * 320, (8 * 2 * 320 + 8 * 2 * 320) * 2 + 4 * 16)
+    assert (192, 128) in ops.SPLIT_HEAD_DIMS
+    rng = np.random.default_rng(3)
+    q, k = (torch.from_numpy(_normal(rng, (1, 8, 2, 192))) for _ in range(2))
+    v = torch.from_numpy(_normal(rng, (1, 8, 2, 128)))
+    pos = torch.arange(8, dtype=torch.int32)
+    scores = torch.einsum("bshd,bthd->bhst", q, k) / 192 ** 0.5
+    scores = scores.masked_fill(pos[None, :] > pos[:, None], float("-inf"))
+    want = torch.einsum("bhst,bthd->bshd", torch.softmax(scores, -1), v)
+    torch.testing.assert_close(ops.flash_attention_fwd(q, k, v, pos, pos),
+                               want, atol=1e-5, rtol=1e-5)
+
+
 def _view(shape, strides, offset=0, dtype=torch.bfloat16):
     base = torch.zeros(offset + sum((n - 1) * s for n, s in
                                     zip(shape, strides)) + 1, dtype=dtype)

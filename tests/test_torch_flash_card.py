@@ -298,3 +298,56 @@ def test_frontend_prefill_kernel_matches_plain(arch):
             for name in ("k", "v"):
                 torch.testing.assert_close(g[name], w[name], atol=1e-4,
                                            rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_latent_attention_head_dims_against_plain_and_sdpa(dtype):
+    """deepseek-v2-lite's prefill layout, q and k at head dim 192 (128
+    without rope + 64 rope), v and the output at 128: causal, B 1, S = T
+    = 4096, 16 heads, v a strided view of the expanded latent (each
+    head's 128 k dims, then its 128 v dims), as the model hands it
+    over.  Against the plain version at the file's tolerances, and
+    against PyTorch's SDPA at the same ones."""
+    import torch.nn.functional as F
+
+    gen = _card()
+    dt = getattr(torch, dtype)
+    B, S, H = 1, 4096, 16
+    q = torch.randn((B, S, H, 192), generator=gen, device="cuda", dtype=dt)
+    k = torch.randn((B, S, H, 192), generator=gen, device="cuda", dtype=dt)
+    kv = torch.randn((B, S, H, 256), generator=gen, device="cuda", dtype=dt)
+    v = kv[..., 128:]
+    pos = torch.arange(S, dtype=torch.int32, device="cuda")
+    before = ops.launches
+    got = ops.flash_attention_fwd(q, k, v, pos, pos)
+    torch.cuda.synchronize()
+    assert ops.launches == before + 1 and got.shape == (B, S, H, 128)
+    want = ops.flash_attention_fwd(q, k, v, pos, pos, impl="ref")
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    sdpa = F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True).transpose(1, 2)
+    torch.testing.assert_close(got.float(), sdpa.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_latent_attention_head_dims_ragged(dtype):
+    """qk 192 / v 128 over ragged S and T (neither a tile multiple, T !=
+    S), shuffled ring positions with unwritten (-1) slots, two rows."""
+    gen = _card()
+    dt = getattr(torch, dtype)
+    B, S, T, H = 2, 200, 333, 4
+    q = torch.randn((B, S, H, 192), generator=gen, device="cuda", dtype=dt)
+    k = torch.randn((B, T, H, 192), generator=gen, device="cuda", dtype=dt)
+    v = torch.randn((B, T, H, 128), generator=gen, device="cuda", dtype=dt)
+    k_pos = torch.randperm(T, generator=gen, device="cuda").to(torch.int32)
+    k_pos[torch.randperm(T, generator=gen, device="cuda")[:50]] = -1
+    q_pos = torch.arange(T - S, T, dtype=torch.int32, device="cuda")
+    got = ops.flash_attention_fwd(q, k, v, q_pos, k_pos)
+    want = ops.flash_attention_fwd(q, k, v, q_pos, k_pos, impl="ref")
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])

@@ -219,3 +219,19 @@ def test_kernel_reads_weights_updated_in_place(C, kernel):
         _assert_close(got, ops.grouped_matmul(x, w, impl="ref"), "bfloat16")
         with torch.no_grad():
             w.mul_(-0.5).add_(0.01)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,E,C,D,F,kernel", [
+    (4, 64, 3840, 2048, 1408, "wide"),   # prefill, wi (gate and up)
+    (4, 64, 3840, 1408, 2048, "wide"),   # prefill, wo
+    (4, 64, 8, 2048, 1408, "narrow"),    # decode, wi: 22 column slices
+    (4, 64, 8, 1408, 2048, "narrow"),    # decode, wo: 22 k-tiles deep
+])
+def test_bf16_kernels_at_deepseek_v2_lites_serving_shapes(B, E, C, D, F,
+                                                          kernel):
+    """deepseek-v2-lite's routed experts when serving 4 slots of 32,768
+    tokens: C = _capacity(32,768 tokens, 64 experts, top-6, 1.25) = 3,840
+    at prefill (15,360 rows an expert) and 8 at decode (32 rows); F =
+    1,408 is 5.5 of the wide kernel's 256-column tiles."""
+    _run(B, E, C, D, F, D ** -0.5, kernel)
